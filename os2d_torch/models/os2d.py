@@ -1,0 +1,143 @@
+"""OS2D model facade: counterpart of `os2d_tpu/models/os2d.py`
+(the reference's Os2dModel, os2d/modeling/model.py:123-386), eval path.
+
+`Os2dModel` is an nn.Module that owns its weights:
+
+  backbone        ResNet-C4 for the input images;
+  label_backbone  ResNet-C4 for the class images, present only when
+                  merge_branch_parameters=False (else the backbone is shared);
+  transform_net   the TransformationNet.
+
+Class heads are not submodules: class features are a [C, 15, 15, F] tensor
+computed once and passed around explicitly, so classes batch as an axis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..structures.feature_map import FeatureMapSize, feature_map_size_for_image
+from .head import ClassHead, build_class_head, head_forward
+from .resnet import ResNetC4
+from .transform_net import TransformNet
+
+IMG_NORMALIZATION_MEAN = (0.485, 0.456, 0.406)
+IMG_NORMALIZATION_STD = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class Os2dConfig:
+    """Static model configuration (mirrors cfg.model, os2d/config.py:14-29),
+    with the fields of `os2d_tpu.models.Os2dConfig` that this slice reads."""
+
+    backbone_arch: str = "resnet50"
+    merge_branch_parameters: bool = True
+    use_inverse_geom_model: bool = True
+    use_simplified_affine_model: bool = False
+    use_group_norm: bool = False
+    class_image_size: int = 240
+    normalization_mean: tuple = IMG_NORMALIZATION_MEAN
+    normalization_std: tuple = IMG_NORMALIZATION_STD
+    compute_dtype: str = "float32"
+    resample_precision: str = "default"  # "highest" | "high" | "default":
+    # all run the fp32 resample kernel; "int8" is not ported
+    corr_interior_first: bool = True  # correlation channels with the
+    # pool-mask interior as a contiguous prefix (the only order ported)
+
+
+def normalize_images(images_nhwc, config: Os2dConfig):
+    """Apply the dataset mean/std normalization to [0,1]-range NHWC images."""
+    mean = torch.tensor(config.normalization_mean, dtype=torch.float32, device=images_nhwc.device)
+    std = torch.tensor(config.normalization_std, dtype=torch.float32, device=images_nhwc.device)
+    return (images_nhwc - mean) / std
+
+
+@torch.no_grad()
+def init_os2d_params(model: "Os2dModel", seed: int = 0) -> None:
+    """Fill the model's weights from a seed with the distributions of
+    `os2d_tpu.models.init_os2d_params` (the numbers differ from JAX's; to
+    hold the two packages against each other, convert the JAX params with
+    `models.from_jax.state_dict_from_jax`)."""
+    generator = torch.Generator(device=model.device).manual_seed(seed)
+    model.backbone.reset_parameters(generator)
+    if model.label_backbone is not None:
+        model.label_backbone.reset_parameters(generator)
+    model.transform_net.reset_parameters(generator)
+
+
+class Os2dModel(nn.Module):
+    """The OS2D network for evaluation.
+
+    Runs on `device`, by default "cuda"; it raises if CUDA is absent rather
+    than moving to the CPU. Pass device="cpu" to run the plain versions of the
+    kernels. Numerics are fp32: TF32 is switched off for both cuDNN
+    convolutions and matmuls (torch.backends.cudnn.allow_tf32 and
+    torch.backends.cuda.matmul.allow_tf32, process-wide). The weights are
+    filled from `seed` (init_os2d_params) and can be replaced with
+    load_state_dict.
+    """
+
+    def __init__(self, config: Os2dConfig = Os2dConfig(), device=None, seed: int = 0):
+        super().__init__()
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Os2dModel targets CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run on the CPU")
+        if config.compute_dtype != "float32":
+            raise NotImplementedError("only compute_dtype='float32' is ported")
+        if config.use_group_norm:
+            raise NotImplementedError("GroupNorm backbones are not ported")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.config = config
+        self.device = device
+        self.backbone = ResNetC4(config.backbone_arch, device)
+        self.label_backbone = (None if config.merge_branch_parameters
+                               else ResNetC4(config.backbone_arch, device))
+        self.transform_net = TransformNet(
+            4 if config.use_simplified_affine_model else 6, device)
+        init_os2d_params(self, seed)
+        # eval-only slice: no autograd state is kept
+        self.requires_grad_(False)
+        self.eval()
+
+    def extract_features(self, images_nhwc):
+        """[B, H, W, 3] normalized images -> [B, H/16, W/16, 1024]."""
+        return self.backbone(images_nhwc)
+
+    def build_class_head_from_images(self, class_images) -> ClassHead:
+        """Class images (list of [h, w, 3] normalized tensors or arrays,
+        possibly of different sizes) -> ClassHead with [C, 15, 15, F] features.
+        Images of identical shape share one backbone call."""
+        label_backbone = (self.backbone if self.label_backbone is None
+                          else self.label_backbone)
+        by_shape = {}
+        for i, img in enumerate(class_images):
+            by_shape.setdefault(tuple(img.shape), []).append(i)
+        feats = [None] * len(class_images)
+        for idxs in by_shape.values():
+            batch = torch.stack([torch.as_tensor(class_images[i], device=self.device)
+                                 for i in idxs])
+            fm = label_backbone(batch)
+            for j, i in enumerate(idxs):
+                feats[i] = fm[j]
+        return build_class_head(feats)
+
+    def apply_head(self, feature_maps, class_head: ClassHead):
+        """Feature maps + class head -> dict(loc, cls, corners, fm_size)."""
+        return head_forward(
+            self.transform_net,
+            feature_maps,
+            class_head,
+            simple_affine=self.config.use_simplified_affine_model,
+            use_inverse_geom_model=self.config.use_inverse_geom_model,
+            resample_precision=self.config.resample_precision,
+            corr_interior_first=self.config.corr_interior_first,
+        )
+
+    def get_feature_map_size(self, img_size: FeatureMapSize) -> FeatureMapSize:
+        return feature_map_size_for_image(img_size)

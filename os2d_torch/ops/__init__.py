@@ -1,0 +1,1 @@
+"""Device ops and the wrappers of the hand-written CUDA kernels."""

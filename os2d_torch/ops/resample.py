@@ -1,0 +1,83 @@
+"""The correlation resample + masked pool, through the CUDA kernel
+`csrc/resample.cu` on the card and through its plain PyTorch version
+(`ops/sampling.resample_correlation_from_pxpy_reference`) on the CPU.
+
+Contract (the head's t-major layout, os2d_tpu/models/head.py:294-299):
+  corr   [B, C, H, W, T_full] float32, last-dim stride 1, rows of a uniform
+         stride >= T (the full 225-channel tensor or a prefix view of it);
+  px, py [B, C, T, A] float32 contiguous, A = H * W;
+  mask_t [C, T] float32 contiguous.
+Returns [B, C, H, W] float32.
+
+A CUDA tensor goes to the kernel, or the call raises; a CPU tensor goes to
+the plain version. There is no path from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda import CudaKernel
+from .sampling import resample_correlation_from_pxpy_reference
+
+KERNEL = CudaKernel(
+    "resample.cu",
+    "os2d_resample_correlation",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p],
+)
+
+_MAX_GRID_Y = 65535
+
+
+def _check_contract(corr, px, py, mask_t):
+    if corr.dim() != 5:
+        raise ValueError(f"corr must be [B, C, H, W, T_full], got {tuple(corr.shape)}")
+    b, c, h, w, t_full = corr.shape
+    if px.dim() != 4:
+        raise ValueError(f"px must be [B, C, T, A], got {tuple(px.shape)}")
+    t = px.shape[2]
+    if tuple(px.shape) != (b, c, t, h * w) or tuple(py.shape) != tuple(px.shape):
+        raise ValueError(
+            f"px/py must be [B, C, T, A] = {(b, c, t, h * w)}, got "
+            f"{tuple(px.shape)} and {tuple(py.shape)}")
+    if tuple(mask_t.shape) != (c, t):
+        raise ValueError(f"mask_t must be [C, T] = {(c, t)}, got {tuple(mask_t.shape)}")
+    if t > t_full:
+        raise ValueError(f"corr has {t_full} channels, fewer than T={t}")
+    for name, x in (("corr", corr), ("px", px), ("py", py), ("mask_t", mask_t)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if x.device != corr.device:
+            raise ValueError(f"{name} is on {x.device}, corr on {corr.device}")
+    for name, x in (("px", px), ("py", py), ("mask_t", mask_t)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    row = corr.stride(3)
+    if corr.stride(4) != 1 or row < t or corr.stride(2) != w * row or \
+            corr.stride(1) != h * w * row or (b > 1 and corr.stride(0) != c * h * w * row):
+        raise ValueError(
+            f"corr needs last-dim stride 1 and uniform row strides, got "
+            f"strides {corr.stride()} for shape {tuple(corr.shape)}")
+
+
+def resample_correlation(corr, px, py, mask_t):
+    """Scores [B, C, H, W]: the kernel on CUDA tensors, the plain version on
+    CPU tensors (see the module docstring for the contract)."""
+    _check_contract(corr, px, py, mask_t)
+    if corr.device.type == "cpu":
+        return resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
+    if corr.device.type != "cuda":
+        raise ValueError(f"no resample for device {corr.device}")
+    b, c, h, w, _ = corr.shape
+    if b * c > _MAX_GRID_Y:
+        raise ValueError(f"B*C = {b * c} exceeds the kernel's grid limit {_MAX_GRID_Y}")
+    out = torch.empty((b, c, h, w), dtype=torch.float32, device=corr.device)
+    with torch.cuda.device(corr.device):
+        KERNEL.launch(
+            corr.data_ptr(), px.data_ptr(), py.data_ptr(), mask_t.data_ptr(),
+            out.data_ptr(), b, c, h, w, px.shape[2], corr.stride(3),
+            torch.cuda.current_stream(corr.device).cuda_stream,
+        )
+    return out

@@ -1,0 +1,150 @@
+"""Bilinear sampling ops: align-corners resize, the antialiased pyramid
+resize, and the plain version of the correlation-map resample.
+
+Counterpart of `os2d_tpu/ops/sampling.py`. The resample itself runs through
+`ops/resample.py`, whose CUDA kernel is held against
+`resample_correlation_from_pxpy_reference` below.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def linspace(start: float, stop: float, num: int, device=None):
+    """float32 linspace, value for value as JAX computes `jnp.linspace` with
+    constant ends: start * (1 - i*r) + i * (r*stop) with r = 1/(num-1) in
+    float32 (XLA turns the division into a multiply by r and folds r*stop),
+    and the endpoint exact. torch.linspace and numpy round some points
+    differently by an ulp, which moves align-corners weights by ~1e-6."""
+    f32 = torch.float32
+    if num == 1:
+        return torch.full((1,), start, dtype=f32, device=device)
+    r = torch.tensor(1.0 / (num - 1), dtype=f32, device=device)
+    i = torch.arange(num - 1, dtype=f32, device=device)
+    out = start * (1 - i * r) + i * (r * stop)
+    return torch.cat([out, torch.full((1,), stop, dtype=f32, device=device)])
+
+
+def _interp_matrix(out_size: int, in_size: int, device=None, dtype=torch.float32):
+    """[out, in] bilinear interpolation matrix with align_corners=True."""
+    if in_size == 1:
+        return torch.ones((out_size, 1), dtype=dtype, device=device)
+    if out_size == 1:
+        # align_corners with a single output point samples coordinate -1 -> 0
+        m = torch.zeros((1, in_size), dtype=dtype, device=device)
+        m[0, 0] = 1.0
+        return m
+    pos = linspace(0.0, in_size - 1.0, out_size, device=device).to(dtype)
+    i0 = torch.floor(pos).clamp(0, in_size - 1).long()
+    i1 = (i0 + 1).clamp(0, in_size - 1)
+    w1 = pos - i0.to(dtype)
+    w0 = 1.0 - w1
+    rows = torch.arange(out_size, device=device)
+    m = torch.zeros((out_size, in_size), dtype=dtype, device=device)
+    m.index_put_((rows, i0), w0, accumulate=True)
+    m.index_put_((rows, i1), w1, accumulate=True)
+    return m
+
+
+def resize_bilinear_align_corners(x, out_h: int, out_w: int):
+    """Bilinear resize with align_corners=True on NHWC (or HWC) input.
+
+    Exactly equivalent to F.grid_sample over an identity F.affine_grid
+    (both align_corners=True), the way the reference resizes class feature
+    maps to 15x15 (os2d/modeling/head.py:240-259). Two dense matmuls.
+    """
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    _, h, w, _ = x.shape
+    m_h = _interp_matrix(out_h, h, x.device, x.dtype)
+    m_w = _interp_matrix(out_w, w, x.device, x.dtype)
+    y = torch.einsum("oh,nhwc->nowc", m_h, x)
+    y = torch.einsum("pw,nowc->nopc", m_w, y)
+    return y[0] if squeeze else y
+
+
+def _antialias_weight_matrix(in_size: int, out_size: int, device=None):
+    """[in, out] weights of `jax.image.resize(method="bilinear",
+    antialias=True)` along one axis (jax/_src/image/scale.py,
+    compute_weight_mat): the triangle kernel, widened by 1/scale when
+    downsampling, normalized over the input axis and zeroed where the sample
+    falls outside the input. Every step runs in float32 as JAX runs it."""
+    f32 = torch.float32
+    inv_scale = 1.0 / (out_size / in_size)
+    inv_scale_t = torch.tensor(inv_scale, dtype=f32, device=device)
+    kernel_scale = torch.tensor(max(inv_scale, 1.0), dtype=f32, device=device)
+    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) * inv_scale_t - 0.5
+    x = torch.abs(sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None])
+    weights = torch.clamp(1.0 - x / kernel_scale, min=0.0)
+    total = torch.sum(weights, dim=0, keepdim=True)
+    weights = torch.where(
+        torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+        weights / torch.where(total != 0, total, 1.0),
+        0.0,
+    )
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, 0.0)
+
+
+def resize_bilinear_antialias(images, out_h: int, out_w: int):
+    """[B, H, W, C] float -> [B, out_h, out_w, C], matching
+    `jax.image.resize(images, (B, out_h, out_w, C), "bilinear",
+    antialias=True)` to fp32 rounding: one weight matrix per resized axis,
+    applied as two matmuls. An axis whose size does not change is skipped,
+    as JAX skips it (its weights would be the identity)."""
+    _, h, w, _ = images.shape
+    y = images
+    if out_h != h:
+        y = torch.einsum("bhwc,ho->bowc", y, _antialias_weight_matrix(h, out_h, y.device))
+    if out_w != w:
+        y = torch.einsum("bhwc,wp->bhpc", y, _antialias_weight_matrix(w, out_w, y.device))
+    return y
+
+
+def resample_correlation_from_pxpy_reference(corr, px, py, mask_t):
+    """Plain PyTorch resample + masked pool of the correlation tensor, on the
+    t-major contract of `os2d_tpu.ops.sampling.resample_correlation_from_pxpy`
+    in the gather form of `resample_correlation_map_gather`.
+
+    For every (b, c, anchor) and template point t, samples channel t of corr
+    bilinearly at (px, py): floor, weights from the unclamped floor, corner
+    indices clamped to the map (border padding, align_corners), then weights
+    the sample by mask_t[c, t] and sums over t in fp32.
+
+    The sum runs over t in order, one rounded multiply or add at a time, as
+    the CUDA kernel computes it, so the two agree to the last bit on the card.
+
+    Args:
+      corr: [B, C, H, W, T_full] with T_full >= T; channel t < T is read (a
+        prefix view such as corr[..., :121] is taken as it is, not copied).
+      px, py: [B, C, T, A] pixel-space sample coordinates, A = H * W.
+      mask_t: [C, T] pool mask in the same t order.
+    Returns scores [B, C, H, W].
+    """
+    b, c, h, w, _ = corr.shape
+    a = h * w
+    planes = corr.reshape(b, c, a, corr.shape[-1])  # [B, C, A, T_full]
+
+    def gather(plane, yi, xi):
+        return torch.gather(plane, 2, yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
+
+    scores = torch.zeros((b, c, a), dtype=torch.float32, device=corr.device)
+    for t in range(px.shape[2]):
+        plane = planes[..., t]  # [B, C, A]
+        x0 = torch.floor(px[:, :, t])
+        y0 = torch.floor(py[:, :, t])
+        wx = px[:, :, t] - x0
+        wy = py[:, :, t] - y0
+        x0i = x0.long()
+        y0i = y0.long()
+        sampled = (
+            gather(plane, y0i, x0i) * (1 - wx) * (1 - wy)
+            + gather(plane, y0i, x0i + 1) * wx * (1 - wy)
+            + gather(plane, y0i + 1, x0i) * (1 - wx) * wy
+            + gather(plane, y0i + 1, x0i + 1) * wx * wy
+        )  # [B, C, A]
+        scores = scores + sampled * mask_t[None, :, t, None]
+    return scores.reshape(b, c, h, w)

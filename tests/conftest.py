@@ -30,6 +30,10 @@ def pytest_configure(config):
         "markers", "golden: executes the PyTorch reference as a test oracle "
         "(auto-applied to every test in a module importing torch or "
         "reference_oracle). Smoke tier: -m 'not golden and not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (a hand-written CUDA kernel has "
+        "no CPU mode); skips without one. On a card: python -m pytest "
+        "--noconftest tests/test_torch_kernels_card.py")
 
 
 # modules that import torch / reference_oracle execute the reference as an
