@@ -4,49 +4,90 @@
     python3 chip_smoke.py            # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of one dispatch
 
-Phases, each printing one JSON line:
+The model is `Os2dConfig()` at full width (ResNet50-C4, 1024 channels) with
+seeded random weights. Its resample runs at the "default" tier, the bf16 hat
+kernel (csrc/hat_resample.cu); the "highest" tier runs the fp32 gather kernel
+(csrc/resample.cu). Phases, each printing one JSON line:
   1. env      the card (nvidia-smi name and power limit), torch/CUDA versions,
-              the TF32 flags as the model sets them, and the kernel build
-              (nvcc for sm_90a from os2d_torch/csrc) with its seconds.
-  2. kernel   the resample kernel against its plain PyTorch version
-              (rtol 1e-5, atol 1e-6) at a ragged small shape and at the bench
-              protocol's largest level.
-  3. planted  the planted-patch scenes of tests/test_end_to_end_eval.py at
-              full width with seeded random weights: each patch must be the
-              top valid detection of its class (IoU > 0.5), and the card's
-              detections must agree with the same model on the CPU.
-  4. main     Evaluator.detect_images at the bench protocol (bench.py):
+              the TF32 flags as the model sets them, and the kernel builds
+              (one nvcc per source in os2d_torch/csrc, all started together,
+              for sm_90a) with their seconds.
+  2. kernel   each kernel against its plain PyTorch version: the gather at
+              rtol 1e-5, atol 1e-6; the hat kernel at rtol 1e-5, atol 1e-5
+              and within 4e-3 (the "default" prescreen margin) of the exact
+              fp32 gather. Ragged small shapes and every level of the bench
+              protocol (B=2, C=16).
+  3. planted  the planted-patch scenes of tests/test_end_to_end_eval.py
+              through Evaluator.detect_images at the default tier: each patch
+              must be the top valid detection of its class (IoU > 0.5), and
+              the card's detections must agree with the same model on the CPU
+              (scores 1e-4, boxes 1e-2 px).
+  4. evaluate engine.evaluate.evaluate() over the planted dataset written as
+              files and read through the port's data layer, two pyramid
+              levels, TTA "horflip_rotation90" (8 views per class) and a
+              finite nms_score_threshold (the class prescreen runs): mAP@0.50
+              must be >= 0.9 and equal to the same run on the CPU.
+  5. prescreen  Evaluator.detect_images_prescreened with a one-hot class bank
+              and a threshold between the classes' best scores: some but not
+              all classes are pruned, the same ones as on the CPU, and the
+              survivors' detections match the full path (scores 1e-4, boxes
+              1e-3 px) and the CPU's.
+  6. main     Evaluator.detect_images at the bench protocol (bench.py):
               B=2 images of 1280x960, the 7-level pyramid, 16 classes in one
-              chunk. One warmup dispatch, then timed dispatches; the kernel's
-              launch count over the timed run must be 7 per dispatch. Then
-              the kernel's CUDA-event time per launch on the main path's own
-              largest-level inputs, beside its bound, its plain version and
-              F.grid_sample (a yardstick only; the port never calls it).
-Then one {"kernels": [...]} line, the nvidia-smi line, and the last line
+              chunk, default tier. One warmup dispatch, then timed
+              dispatches; the hat kernel must launch 7 times per dispatch.
+  7. main_highest  the same protocol at resample_precision="highest": the
+              gather kernel must launch 7 times per dispatch.
+  8. main_path_inputs / resample_timing  one more default-tier dispatch with
+              the head's resample inputs captured at every level: both
+              kernels held against their plain versions there; then their
+              CUDA-event times per launch on the largest level, beside their
+              bounds, their plain versions and a library yardstick each
+              (F.grid_sample for the gather, cuBLAS bf16 matmuls over
+              materialised hat rows for the hat kernel; the port calls
+              neither).
+Launch counts are set to 0 just before each of phases 3-7 and read just
+after it; a phase whose kernel was not launched fails. Then one
+{"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
 exits 1.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
-# H100 SXM published peaks: HBM bytes/s and fp32 (non-tensor-core) flop/s
+# H100 SXM published peaks: HBM bytes/s, fp32 (non-tensor-core) flop/s and
+# dense bf16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# flops per template-point sample in the resample: floor x2, fractions x2,
-# complements x2, 8 weight products, 4 corner products summed, mask multiply-add
+BF16_FLOPS = 989e12
+# flops per template-point sample in the gather resample: floor x2,
+# fractions x2, complements x2, 8 weight products, 4 corner products summed,
+# mask multiply-add
 RESAMPLE_FLOPS_PER_SAMPLE = 20
 RTOL, ATOL = 1e-5, 1e-6
+# the hat kernel rounds its operands at the plain version's points but its
+# tensor cores sum the product's terms in their own order
+HAT_RTOL, HAT_ATOL = 1e-5, 1e-5
+DEFAULT_TIER_MARGIN = 4e-3  # engine.evaluate.prescreen_margin("default")
 
 IMG_W, IMG_H = 1280, 960
 PYRAMID = [0.5, 0.625, 0.8, 1, 1.2, 1.4, 1.6]
 NUM_CLASSES = 16
 BATCH = 2
 TIMED_DISPATCHES = 6
+TIMED_DISPATCHES_HIGHEST = 2
 PATCH = 240
 PLANTED = {0: [(48, 48, 0)], 1: [(336, 176, 1), (48, 112, 0)]}
+EVAL_PYRAMID = [0.8, 1.0]
+EVAL_TTA = "horflip_rotation90"
+EVAL_SCORE_THRESHOLD = 0.5
+PRESCREEN_CLASSES = 8
+PRESCREEN_W, PRESCREEN_H = 320, 256
 
 
 def emit(obj):
@@ -75,19 +116,44 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def resample_bound(b, c, a, t):
-    """(bound_ms, bound_by) of one resample: each input read once (corr
-    prefix, px, py, mask), the output written once; against the fp32 rate."""
-    bytes_ = 4 * (3 * b * c * t * a + c * t + b * c * a)
-    ops = RESAMPLE_FLOPS_PER_SAMPLE * b * c * t * a
-    bytes_ms, ops_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+def bound(bytes_, ops, ops_per_s):
+    """(bound_ms, bound_by): the larger of the byte and the operation time."""
+    bytes_ms, ops_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def max_err_checked(got, want, what):
+def resample_bytes(b, c, a, t):
+    """Each input read once (corr prefix, px, py, mask), the output written
+    once; fp32 throughout."""
+    return 4 * (3 * b * c * t * a + c * t + b * c * a)
+
+
+def resample_bound(b, c, a, t):
+    """The gather kernel: its fp32 operations against the fp32 rate."""
+    return bound(resample_bytes(b, c, a, t), RESAMPLE_FLOPS_PER_SAMPLE * b * c * t * a,
+                 FP32_FLOPS)
+
+
+def hat_bound(b, c, h, w, t):
+    """The hat kernel computes the gather's function with bf16-rounded
+    operands, so its bound is what that function needs: the gather's bytes,
+    or the banded hat product (the two non-zero hat weights of each row:
+    2*2*W flops per sample on the bf16 tensor cores) where that is larger.
+    The dense form's 2*B*C*T*A*H*W flops are not needed by the function;
+    `dense_hat_ms` gives their time apart."""
+    a = h * w
+    return bound(resample_bytes(b, c, a, t), 2 * b * c * t * a * 2 * w, BF16_FLOPS)
+
+
+def dense_hat_ms(b, c, h, w, t):
+    """The dense hat product's 2*B*C*T*A*H*W flops at the bf16 rate, in ms."""
+    return 2 * b * c * t * (h * w) * h * w / BF16_FLOPS * 1e3
+
+
+def max_err_checked(got, want, what, rtol=RTOL, atol=ATOL):
     import torch
 
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL, msg=lambda m: f"{what}: {m}")
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}")
     return float((got - want).abs().max())
 
 
@@ -108,6 +174,8 @@ def random_resample_inputs(b, c, h, w, gen):
 
 
 def planted_scenes():
+    """The two 640x480 scenes and two class patches of
+    tests/test_end_to_end_eval.py (same seed, same draws)."""
     import numpy as np
 
     rng = np.random.RandomState(0)
@@ -124,9 +192,33 @@ def planted_scenes():
     return np.stack(scenes), patches
 
 
-def detections_agree(got, want):
+def write_planted_dataset(root):
+    """The planted scenes as the files and CSV-schema dataframe of
+    tests/test_end_to_end_eval.py:30-69 (JPEG, quality 95)."""
+    import pandas as pd
+    from PIL import Image
+
+    scenes, patches = planted_scenes()
+    os.makedirs(os.path.join(root, "classes", "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "src"), exist_ok=True)
+    for cid, patch in enumerate(patches):
+        Image.fromarray(patch).save(os.path.join(root, "classes", "images", f"class{cid}.jpg"),
+                                    quality=95)
+    rows = []
+    for image_id, plants in sorted(PLANTED.items()):
+        for x0, y0, cid in plants:
+            rows.append(dict(imageid=image_id, imagefilename=f"img{image_id}.jpg", classid=cid,
+                             classfilename=f"class{cid}.jpg", gtbboxid=len(rows), difficult=0,
+                             lx=x0 / 640, ty=y0 / 480, rx=(x0 + PATCH) / 640,
+                             by=(y0 + PATCH) / 480))
+        Image.fromarray(scenes[image_id]).save(os.path.join(root, "src", f"img{image_id}.jpg"),
+                                               quality=95)
+    return pd.DataFrame(rows)
+
+
+def detections_agree(got, want, box_atol=1e-2):
     """Every valid detection of `got` has one in `want` of the same image and
-    class with score within 1e-4 and box within 1e-2 px, and the counts
+    class with score within 1e-4 and box within box_atol px, and the counts
     match (robust to the order of near-tied scores)."""
     import numpy as np
 
@@ -137,7 +229,7 @@ def detections_agree(got, want):
                 return False
             ws, wb = want["scores"][b, g][wv], want["boxes"][b, g][wv]
             for s, box in zip(got["scores"][b, g][gv], got["boxes"][b, g][gv]):
-                hit = (np.abs(ws - s) <= 1e-4) & (np.abs(wb - box).max(-1) <= 1e-2)
+                hit = (np.abs(ws - s) <= 1e-4) & (np.abs(wb - box).max(-1) <= box_atol)
                 if not hit.any():
                     return False
     return True
@@ -155,42 +247,89 @@ def main(argv):
     import torch.nn.functional as F
 
     from os2d_torch.config import get_default_cfg
-    from os2d_torch.engine.evaluate import Evaluator, unpack_detections
+    from os2d_torch.data.dataloader import DataloaderOneShotDetection
+    from os2d_torch.data.dataset import DatasetOneShotDetection
+    from os2d_torch.engine.evaluate import Evaluator, evaluate, unpack_detections
     from os2d_torch.models import Os2dConfig, Os2dModel
     from os2d_torch.models import head as head_module
-    from os2d_torch.ops import resample
-    from os2d_torch.ops.cuda import build_all
-    from os2d_torch.ops.sampling import resample_correlation_from_pxpy_reference
+    from os2d_torch.ops import hat_resample, resample
+    from os2d_torch.ops.cuda import BUILD_DIR, build_all
+    from os2d_torch.ops.sampling import (
+        hat_resample_operand,
+        hat_resample_reference,
+        resample_correlation_from_pxpy_reference,
+    )
     from os2d_torch.structures.boxes import box_iou
     from os2d_torch.structures.feature_map import FeatureMapSize, feature_map_size_for_image
+
+    kernels = {"resample_correlation": resample.KERNEL,
+               "hat_resample_correlation": hat_resample.KERNEL}
+
+    def reset_counts():
+        for k in kernels.values():
+            k.launches = 0
+
+    def read_counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    def require_launches(phase, counts, kernel, expected=None):
+        n = counts[kernel]
+        if n == 0 or (expected is not None and n != expected):
+            raise SystemExit(f"{phase}: {kernel} launched {n} times, expected "
+                             f"{'at least one' if expected is None else expected}")
 
     # ---- 1. environment and build ----
     smi = nvidia_smi_line()
     model = Os2dModel(Os2dConfig(), seed=0)
     t0 = time.perf_counter()
-    logs = build_all([resample.KERNEL.source])
+    logs = build_all([k.source for k in kernels.values()])
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "build_s": build_s, "built": sorted(logs), "ptxas": ptxas})
 
-    # ---- 2. kernel against its plain version ----
+    # ---- 2. kernels against their plain versions ----
+    # ragged small shapes, then every level of the bench protocol (B=2,
+    # C=16): the hat kernel is compiled once per 16 rows of H, and the
+    # levels need five of those versions
+    sizes = [FeatureMapSize(w=int(IMG_W * s), h=int(IMG_H * s)) for s in PYRAMID]
+    fms = [feature_map_size_for_image(sz) for sz in sizes]
+    shapes = [("ragged_6x7", (2, 3, 6, 7)), ("ragged_19x23", (2, 3, 19, 23))]
+    shapes += [(f"bench_{fm.h}x{fm.w}", (BATCH, NUM_CLASSES, fm.h, fm.w)) for fm in fms]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {}
-    for name, (b, c, h, w) in (("ragged", (2, 3, 6, 7)), ("bench_largest", (2, 16, 96, 128))):
+    errs = {"resample_correlation": {}, "hat_resample_correlation": {}}
+    hat_exact_errs = {}
+    for name, (b, c, h, w) in shapes:
         corr, px, py, mask_t = random_resample_inputs(b, c, h, w, gen)
+        corr = corr[..., :121]
+        exact = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
         got = resample.resample_correlation(corr, px, py, mask_t)
         torch.cuda.synchronize()
-        want = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
-        errs[name] = max_err_checked(got, want, f"resample kernel at {name}")
-        del corr, px, py, mask_t, got, want
-    emit({"phase": "kernel", "rtol": RTOL, "atol": ATOL, "max_abs_err": errs})
+        errs["resample_correlation"][name] = max_err_checked(
+            got, exact, f"resample kernel at {name}")
+        got = hat_resample.resample_correlation_hat(corr, px, py, mask_t)
+        torch.cuda.synchronize()
+        want = hat_resample_reference(corr, px, py, mask_t)
+        errs["hat_resample_correlation"][name] = max_err_checked(
+            got, want, f"hat kernel at {name}", HAT_RTOL, HAT_ATOL)
+        hat_exact_errs[name] = float((got - exact).abs().max())
+        if not hat_exact_errs[name] <= DEFAULT_TIER_MARGIN:
+            raise SystemExit(f"hat kernel is {hat_exact_errs[name]} from the exact gather at "
+                             f"{name}, above the margin {DEFAULT_TIER_MARGIN}")
+        del corr, px, py, mask_t, got, want, exact
+    emit({"phase": "kernel",
+          "resample_correlation": {"rtol": RTOL, "atol": ATOL,
+                                   "max_abs_err": errs["resample_correlation"]},
+          "hat_resample_correlation": {"rtol": HAT_RTOL, "atol": HAT_ATOL,
+                                       "max_abs_err": errs["hat_resample_correlation"],
+                                       "vs_exact_gather": hat_exact_errs,
+                                       "exact_margin": DEFAULT_TIER_MARGIN}})
 
-    # ---- 3. planted patches, and the card against the CPU ----
+    # ---- 3. planted patches at the default tier, the card against the CPU ----
     cfg = get_default_cfg()
     cfg.tpu.eval_pre_top_k = 256
     cfg.tpu.eval_top_k = 16
@@ -202,10 +341,12 @@ def main(argv):
     packed = {}
     cpu_model = Os2dModel(Os2dConfig(), device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    reset_counts()
     for dev, m in (("cuda", model), ("cpu", cpu_model)):
         ev = Evaluator(m, cfg)
         head, _ = ev.build_class_heads(class_images)
         packed[dev] = unpack_detections(ev.detect_images(scenes, head, level, [(1.0, 1.0)], norm))
+    planted_counts = read_counts()
     det = packed["cuda"]
     found = []
     for image_id, plants in PLANTED.items():
@@ -216,131 +357,320 @@ def main(argv):
                                 torch.tensor([[x0, y0, x0 + PATCH, y0 + PATCH]],
                                              dtype=torch.float32)))
             found.append({"image": image_id, "class": cid, "iou": iou,
+                          "score": float(det["scores"][image_id, cid, top]),
                           "ok": bool(valid.any()) and iou > 0.5})
     agree = detections_agree(packed["cuda"], packed["cpu"])
-    emit({"phase": "planted", "found": found, "cuda_matches_cpu": agree})
+    emit({"phase": "planted", "resample_precision": model.config.resample_precision,
+          "found": found, "cuda_matches_cpu": agree, "launches": planted_counts})
     if not all(f["ok"] for f in found):
         raise SystemExit("planted patches were not all found")
     if not agree:
         raise SystemExit("detections on the card differ from the CPU's")
+    require_launches("planted", planted_counts, "hat_resample_correlation")
+
+    # ---- 4. evaluate() to VOC mAP: data layer, TTA, prescreen ----
+    eval_cfg = get_default_cfg()
+    eval_cfg.eval.mAP_iou_thresholds = [0.5]
+    eval_cfg.eval.class_image_augmentation = EVAL_TTA
+    eval_cfg.eval.nms_score_threshold = EVAL_SCORE_THRESHOLD
+    eval_cfg.tpu.eval_pre_top_k = 256
+    eval_cfg.tpu.eval_top_k = 32
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        df = write_planted_dataset(root)
+        dataset = DatasetOneShotDetection(
+            df, gt_path=os.path.join(root, "classes", "images"),
+            image_path=os.path.join(root, "src"), name="planted", image_size=640,
+            eval_scale=640, cache_images=True)
+        loader = DataloaderOneShotDetection(dataset, batch_size=1,
+                                            pyramid_scales_eval=EVAL_PYRAMID)
+        reset_counts()
+        t0 = time.perf_counter()
+        results = evaluate(loader, model, eval_cfg)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_counts = read_counts()
+        t0 = time.perf_counter()
+        cpu_results = evaluate(loader, cpu_model, eval_cfg)
+        cpu_eval_s = time.perf_counter() - t0
+    emit({"phase": "evaluate", "data": "files (PIL + pandas) through os2d_torch.data",
+          "levels": EVAL_PYRAMID, "class_image_augmentation": EVAL_TTA,
+          "nms_score_threshold": EVAL_SCORE_THRESHOLD,
+          "mAP@0.50": results["mAP@0.50"], "recall@0.50": results["recall@0.50"],
+          "prescreen_pruned": results.get("prescreen_pruned"),
+          "cpu_mAP@0.50": cpu_results["mAP@0.50"],
+          "cpu_prescreen_pruned": cpu_results.get("prescreen_pruned"),
+          "launches": eval_counts, "seconds": eval_s, "cpu_seconds": cpu_eval_s})
+    if "prescreen_pruned" not in results:
+        raise SystemExit("evaluate() did not go through the class prescreen")
+    if not results["mAP@0.50"] >= 0.9:
+        raise SystemExit(f"evaluate() mAP@0.50 {results['mAP@0.50']} < 0.9")
+    if cpu_results["mAP@0.50"] != results["mAP@0.50"]:
+        raise SystemExit(f"evaluate() mAP@0.50 {results['mAP@0.50']} on the card, "
+                         f"{cpu_results['mAP@0.50']} on the CPU")
+    require_launches("evaluate", eval_counts, "hat_resample_correlation")
+
+    # ---- 5. the prescreen pruning some classes, the card against the CPU ----
+    # random-init features give every class of a real bank a ceiling near
+    # 0.99, so the bank is one-hot as in tests/test_torch_prescreen.py: class
+    # k correlates with feature channel 240 + k, its ceiling has real spread
+    ps_cfg = get_default_cfg()
+    ps_cfg.tpu.eval_class_chunk = 2
+    ps_cfg.tpu.eval_pre_top_k = 256
+    ps_cfg.tpu.eval_top_k = 32
+    ps_feats = torch.zeros(PRESCREEN_CLASSES, 15, 15, 1024)
+    for k in range(PRESCREEN_CLASSES):
+        ps_feats[k, :, :, 240 + k] = 1.0
+    ps_scene = np.random.RandomState(0).randint(0, 255, (1, PRESCREEN_H, PRESCREEN_W, 3),
+                                                np.uint8)
+    ps_level = [FeatureMapSize(w=PRESCREEN_W, h=PRESCREEN_H)]
+    ps = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        ps_head = head_module.ClassHead(ps_feats.to(dev),
+                                        head_module.make_class_pool_mask(PRESCREEN_CLASSES,
+                                                                         device=dev))
+        ev = Evaluator(m, ps_cfg)
+        if dev == "cuda":
+            # a threshold between the classes' best scores, as the tests pick it
+            ps_cfg.eval.nms_score_threshold = float("-inf")
+            full0 = unpack_detections(ev.detect_images(ps_scene, ps_head, ps_level,
+                                                       [(1.0, 1.0)], norm))
+            ps_cfg.eval.nms_score_threshold = float(np.median(full0["scores"][0].max(1)))
+            ps["full"] = unpack_detections(ev.detect_images(ps_scene, ps_head, ps_level,
+                                                            [(1.0, 1.0)], norm))
+            reset_counts()
+        pre = ev.detect_images_prescreened(ps_scene, ps_head, ps_level, [(1.0, 1.0)], norm)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ps_counts = read_counts()
+        ps[dev] = unpack_detections(pre)
+        ps[dev + "_pruned"] = ev.prescreen_pruned
+    ps_match_full = detections_agree(ps["cuda"], ps["full"], box_atol=1e-3)
+    ps_match_cpu = detections_agree(ps["cuda"], ps["cpu"])
+    emit({"phase": "prescreen", "classes": PRESCREEN_CLASSES,
+          "image": f"{PRESCREEN_W}x{PRESCREEN_H}",
+          "nms_score_threshold": ps_cfg.eval.nms_score_threshold,
+          "pruned": ps["cuda_pruned"], "cpu_pruned": ps["cpu_pruned"],
+          "kept_rows": int((ps["cuda"]["valid"][0].sum(1) > 0).sum()),
+          "matches_full_path": ps_match_full, "cuda_matches_cpu": ps_match_cpu,
+          "launches": ps_counts})
+    if not 0 < ps["cuda_pruned"] < PRESCREEN_CLASSES:
+        raise SystemExit(f"prescreen pruned {ps['cuda_pruned']} of {PRESCREEN_CLASSES} "
+                         f"classes: the partial prune was not exercised")
+    if ps["cpu_pruned"] != ps["cuda_pruned"]:
+        raise SystemExit(f"prescreen pruned {ps['cuda_pruned']} classes on the card, "
+                         f"{ps['cpu_pruned']} on the CPU")
+    if not ps_match_full:
+        raise SystemExit("prescreened detections differ from the full path's on the card")
+    if not ps_match_cpu:
+        raise SystemExit("prescreened detections on the card differ from the CPU's")
+    require_launches("prescreen", ps_counts, "hat_resample_correlation")
     del cpu_model
 
-    # ---- 4. main path at the bench protocol ----
+    # ---- 6./7. main path at the bench protocol, both tiers ----
     cfg = get_default_cfg()
     cfg.tpu.eval_class_chunk = NUM_CLASSES
     rng = np.random.RandomState(0)
     class_images = [rng.randn(240, 240, 3).astype(np.float32) for _ in range(NUM_CLASSES)]
-    ev = Evaluator(model, cfg)
-    class_head, _ = ev.build_class_heads(class_images)
-    sizes = [FeatureMapSize(w=int(IMG_W * s), h=int(IMG_H * s)) for s in PYRAMID]
     inv = [(IMG_W / sz.w, IMG_H / sz.h) for sz in sizes]
+    anchors = sum(fm.w * fm.h for fm in fms)
     batches = [np.random.RandomState(i).randint(0, 255, (BATCH, IMG_H, IMG_W, 3), np.uint8)
                for i in range(TIMED_DISPATCHES + 1)]
+    model_highest = Os2dModel(Os2dConfig(resample_precision="highest"), seed=0)
+    model_highest.load_state_dict(model.state_dict())
 
-    t0 = time.perf_counter()
-    ev.detect_images(batches[-1], class_head, sizes, inv, norm)
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-
-    torch.cuda.reset_peak_memory_stats()
-    resample.KERNEL.launches = 0
-    times, outputs = [], []
-    for i in range(TIMED_DISPATCHES):
+    def run_main(phase, m, n_timed, kernel, bound_ms_per_dispatch):
+        ev = Evaluator(m, cfg)
+        class_head, _ = ev.build_class_heads(class_images)
         t0 = time.perf_counter()
-        out = ev.detect_images(batches[i], class_head, sizes, inv, norm)
+        ev.detect_images(batches[-1], class_head, sizes, inv, norm)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        outputs.append(out)
-    launches = resample.KERNEL.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        warmup_s = time.perf_counter() - t0
 
-    fms = [feature_map_size_for_image(sz) for sz in sizes]
-    anchors = sum(fm.w * fm.h for fm in fms)
-    for out in outputs:
-        if tuple(out.shape) != (BATCH, NUM_CLASSES, int(cfg.tpu.eval_top_k), 6):
-            raise SystemExit(f"packed output has shape {tuple(out.shape)}")
-        d = unpack_detections(out)
-        if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"][d["valid"]]).all()
-                and d["valid"].any()):
-            raise SystemExit("main path produced non-finite or no detections")
-    if launches != len(PYRAMID) * TIMED_DISPATCHES:
-        raise SystemExit(f"resample kernel launched {launches} times in "
-                         f"{TIMED_DISPATCHES} dispatches, expected "
-                         f"{len(PYRAMID) * TIMED_DISPATCHES}")
-    dispatch_bound = sum(resample_bound(BATCH, NUM_CLASSES, fm.w * fm.h, 121)[0] for fm in fms)
-    emit({"phase": "main", "images": f"{BATCH}x{IMG_W}x{IMG_H} uint8", "levels": len(sizes),
-          "anchors_per_image": anchors, "classes": NUM_CLASSES, "warmup_s": warmup_s,
-          "dispatch_s": times, "median_dispatch_s": float(np.median(times)),
-          "img_per_s": BATCH / float(np.median(times)),
-          "img_per_s_spread": [BATCH / max(times), BATCH / min(times)],
-          "resample_launches": launches, "resample_bound_ms_per_dispatch": dispatch_bound,
-          "peak_gb": peak_gb})
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, outputs = [], []
+        for i in range(n_timed):
+            t0 = time.perf_counter()
+            out = ev.detect_images(batches[i], class_head, sizes, inv, norm)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            outputs.append(out)
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for out in outputs:
+            if tuple(out.shape) != (BATCH, NUM_CLASSES, int(cfg.tpu.eval_top_k), 6):
+                raise SystemExit(f"{phase}: packed output has shape {tuple(out.shape)}")
+            d = unpack_detections(out)
+            if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"][d["valid"]]).all()
+                    and d["valid"].any()):
+                raise SystemExit(f"{phase}: non-finite or no detections")
+        require_launches(phase, counts, kernel, len(PYRAMID) * n_timed)
+        median = float(np.median(times))
+        emit({"phase": phase, "resample_precision": m.config.resample_precision,
+              "images": f"{BATCH}x{IMG_W}x{IMG_H} uint8", "levels": len(sizes),
+              "anchors_per_image": anchors, "classes": NUM_CLASSES, "warmup_s": warmup_s,
+              "dispatch_s": times, "median_dispatch_s": median, "img_per_s": BATCH / median,
+              "img_per_s_spread": [BATCH / max(times), BATCH / min(times)],
+              "launches": counts, "resample_bound_ms_per_dispatch": bound_ms_per_dispatch,
+              "peak_gb": peak_gb})
+        return ev, class_head, counts, median
 
-    # the kernel on the main path's own largest-level inputs
-    captured = {}
-    original = head_module.resample_correlation
+    ev, class_head, main_counts, main_median = run_main(
+        "main", model, TIMED_DISPATCHES, "hat_resample_correlation",
+        sum(hat_bound(BATCH, NUM_CLASSES, fm.h, fm.w, 121)[0] for fm in fms))
+    _, _, highest_counts, highest_median = run_main(
+        "main_highest", model_highest, TIMED_DISPATCHES_HIGHEST, "resample_correlation",
+        sum(resample_bound(BATCH, NUM_CLASSES, fm.w * fm.h, 121)[0] for fm in fms))
+    del model_highest
+
+    # ---- 8. both kernels on the main path's own inputs ----
+    # one more dispatch with the head's resample inputs captured at every
+    # level; both kernels are held against their plain versions there, and
+    # timed on the largest level
+    captured = []
+    original = head_module.resample_correlation_hat
 
     def capture(corr, px, py, mask_t):
-        captured.update(corr=corr, px=px, py=py, mask_t=mask_t)
-        return original(corr, px, py, mask_t)
+        out = original(corr, px, py, mask_t)
+        captured.append((corr, px, py, mask_t, out))
+        return out
 
-    largest = max(range(len(sizes)), key=lambda i: fms[i].w * fms[i].h)
-    img = torch.as_tensor(batches[0], device="cuda").float() / 255.0
-    img = (img - mean.cuda()) / std.cuda()
-    from os2d_torch.ops.sampling import resize_bilinear_antialias
-
-    head_module.resample_correlation = capture
+    head_module.resample_correlation_hat = capture
     try:
-        fm_big = model.extract_features(
-            resize_bilinear_antialias(img, sizes[largest].h, sizes[largest].w))
-        model.apply_head(fm_big, class_head)
+        ev.detect_images(batches[0], class_head, sizes, inv, norm)
     finally:
-        head_module.resample_correlation = original
-    corr, px, py, mask_t = (captured[k] for k in ("corr", "px", "py", "mask_t"))
+        head_module.resample_correlation_hat = original
+    torch.cuda.synchronize()
+    if len(captured) != len(PYRAMID):
+        raise SystemExit(f"captured {len(captured)} resample calls, expected {len(PYRAMID)}")
+    main_exact_errs = {}
+    for corr, px, py, mask_t, hat_level in captured:
+        name = f"main_path_{corr.shape[2]}x{corr.shape[3]}"
+        exact = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
+        errs["resample_correlation"][name] = max_err_checked(
+            resample.resample_correlation(corr, px, py, mask_t), exact,
+            f"resample kernel on main-path inputs at {name}")
+        errs["hat_resample_correlation"][name] = max_err_checked(
+            hat_level, hat_resample_reference(corr, px, py, mask_t),
+            f"hat kernel on main-path inputs at {name}", HAT_RTOL, HAT_ATOL)
+        main_exact_errs[name] = float((hat_level - exact).abs().max())
+        if not main_exact_errs[name] <= DEFAULT_TIER_MARGIN:
+            raise SystemExit(f"hat kernel is {main_exact_errs[name]} from the exact gather on "
+                             f"the main path's inputs at {name}, above the margin "
+                             f"{DEFAULT_TIER_MARGIN}")
+        del exact
+    emit({"phase": "main_path_inputs", "levels": len(captured),
+          "max_abs_err": {k: {n: e for n, e in v.items() if n.startswith("main_path_")}
+                          for k, v in errs.items()},
+          "hat_vs_exact_gather": main_exact_errs})
+    corr, px, py, mask_t, hat_out = max(captured, key=lambda x: x[0].shape[2] * x[0].shape[3])
+    del captured
     b, c, h, w, _ = corr.shape
     t, a = px.shape[2], h * w
-    kernel_out = resample.resample_correlation(corr, px, py, mask_t)
-    plain_out = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
-    errs["main_path_largest"] = max_err_checked(kernel_out, plain_out,
-                                                "resample kernel on main-path inputs")
-    kernel_ms = cuda_ms(lambda: resample.resample_correlation(corr, px, py, mask_t), 20)
-    plain_ms = cuda_ms(lambda: resample_correlation_from_pxpy_reference(corr, px, py, mask_t), 5)
+    shape = {"B": b, "C": c, "H": h, "W": w, "T": t, "corr_row_stride": corr.stride(3)}
+    largest_name = f"main_path_{h}x{w}"
 
+    # the gather kernel
+    exact = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
+    gather_out = resample.resample_correlation(corr, px, py, mask_t)
+    gather_ms = cuda_ms(lambda: resample.resample_correlation(corr, px, py, mask_t), 20)
+    gather_plain_ms = cuda_ms(
+        lambda: resample_correlation_from_pxpy_reference(corr, px, py, mask_t), 5)
     # yardstick: grid_sample (border, align_corners) on corr viewed as
     # [B*C*T, 1, H, W], then the masked sum; inputs laid out outside the timing
     planes = corr.permute(0, 1, 4, 2, 3).reshape(b * c * t, 1, h, w).contiguous()
     grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1], -1).reshape(b * c * t, 1, a, 2)
 
-    def library():
+    def grid_sample_library():
         s = F.grid_sample(planes, grid, mode="bilinear", padding_mode="border",
                           align_corners=True)
         return (s.view(b, c, t, a) * mask_t[None, :, :, None]).sum(2)
 
-    library_err = float((library().view(b, c, h, w) - kernel_out).abs().max())
-    library_ms = cuda_ms(library, 5)
-    bound_ms, bound_by = resample_bound(b, c, a, t)
-    emit({"phase": "resample_timing", "shape": {"B": b, "C": c, "H": h, "W": w, "T": t,
-                                                "corr_row_stride": corr.stride(3)},
-          "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "library_max_abs_err": library_err, "bound_ms": bound_ms, "bound_by": bound_by,
-          "max_abs_err": errs["main_path_largest"]})
-    del captured, corr, px, py, mask_t, planes, grid
+    gather_library_err = float((grid_sample_library().view(b, c, h, w) - gather_out).abs().max())
+    gather_library_ms = cuda_ms(grid_sample_library, 5)
+    del planes, grid
+    gather_bound_ms, gather_bound_by = resample_bound(b, c, a, t)
+    emit({"phase": "resample_timing", "kernel": "resample_correlation", "shape": shape,
+          "ms": gather_ms, "plain_ms": gather_plain_ms, "library_ms": gather_library_ms,
+          "library": "F.grid_sample + masked sum", "library_max_abs_err": gather_library_err,
+          "bound_ms": gather_bound_ms, "bound_by": gather_bound_by,
+          "max_abs_err": errs["resample_correlation"][largest_name]})
+
+    # the hat kernel: the wrapper as the main path calls it (operand build +
+    # kernel), and the operand build and the kernel on their own
+    hat_ms = cuda_ms(lambda: hat_resample.resample_correlation_hat(corr, px, py, mask_t), 10)
+    operand_ms = cuda_ms(lambda: hat_resample_operand(corr, mask_t), 10)
+    m_op = hat_resample_operand(corr, mask_t)
+    out_buf = torch.empty((b, c, h, w), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    hat_kernel_ms = cuda_ms(lambda: hat_resample.KERNEL.launch(
+        m_op.data_ptr(), px.data_ptr(), py.data_ptr(), out_buf.data_ptr(),
+        b * c, h, w, t, stream), 10)
+    hat_plain_ms = cuda_ms(lambda: hat_resample_reference(corr, px, py, mask_t), 3)
+
+    iota_h = torch.arange(h, dtype=torch.float32, device="cuda")
+    iota_w = torch.arange(w, dtype=torch.float32, device="cuda")
+
+    def hat_library(t_chunk=11):
+        # yardstick: the hat rows materialised in bf16 and multiplied by the
+        # operand with cuBLAS bf16 batched matmuls (bf16 out), t in chunks
+        m = hat_resample_operand(corr, mask_t).view(b * c, t, h, w)
+        pxv, pyv = px.view(b * c, t, a), py.view(b * c, t, a)
+        out = torch.zeros((b * c, a), device="cuda")
+        for t0 in range(0, t, t_chunk):
+            ts = slice(t0, t0 + t_chunk)
+            wy = (1.0 - (pyv[:, ts, :, None] - iota_h).abs()).clamp_(min=0.0).to(torch.bfloat16)
+            r = torch.matmul(wy, m[:, ts])  # [BC, tc, A, W]
+            wx = (1.0 - (pxv[:, ts, :, None] - iota_w).abs()).clamp_(min=0.0)
+            out += (r.float() * wx).sum((1, 3))
+        return out.view(b, c, h, w)
+
+    hat_library_err = float((hat_library() - hat_out).abs().max())
+    hat_library_ms = cuda_ms(hat_library, 3)
+    hat_bound_ms, hat_bound_by = hat_bound(b, c, h, w, t)
+    emit({"phase": "resample_timing", "kernel": "hat_resample_correlation", "shape": shape,
+          "ms": hat_ms, "operand_ms": operand_ms, "kernel_only_ms": hat_kernel_ms,
+          "plain_ms": hat_plain_ms, "library_ms": hat_library_ms,
+          "library": "bf16 hat rows x operand, torch.matmul (cuBLAS), chunks of 11 t",
+          "library_max_abs_err": hat_library_err, "bound_ms": hat_bound_ms,
+          "bound_by": hat_bound_by, "dense_form_ms": dense_hat_ms(b, c, h, w, t),
+          "dense_form_flops": 2 * b * c * t * a * h * w,
+          "max_abs_err": errs["hat_resample_correlation"][largest_name],
+          "vs_exact_gather": main_exact_errs[largest_name]})
+    del corr, px, py, mask_t, exact, gather_out, hat_out, m_op, out_buf
+
+    emit({"phase": "tiers", "img_per_s": {"default": BATCH / main_median,
+                                          "highest": BATCH / highest_median},
+          "median_dispatch_ms": {"default": main_median * 1e3, "highest": highest_median * 1e3}})
 
     if "--profile" in argv:
-        profile_dispatch(ev, batches[0], class_head, sizes, inv, norm, float(np.median(times)))
+        profile_dispatch(ev, batches[0], class_head, sizes, inv, norm, main_median)
 
     emit({"kernels": [{
         "name": "resample_correlation",
         "route": "cuda",
         "source": "os2d_torch/csrc/resample.cu",
         "replaces": "os2d_tpu/ops/pallas_resample.py:24",
-        "launches": launches,
-        "max_abs_err": max(errs.values()),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        "launches": highest_counts["resample_correlation"],
+        "max_abs_err": max(errs["resample_correlation"].values()),
+        "ms": gather_ms,
+        "plain_ms": gather_plain_ms,
+        "bound_ms": gather_bound_ms,
+        "bound_by": gather_bound_by,
+        "library_ms": gather_library_ms,
+    }, {
+        "name": "hat_resample_correlation",
+        "route": "cuda",
+        "source": "os2d_torch/csrc/hat_resample.cu",
+        "replaces": "os2d_tpu/ops/pallas_hat_resample.py:42",
+        "launches": main_counts["hat_resample_correlation"],
+        "max_abs_err": max(errs["hat_resample_correlation"].values()),
+        "ms": hat_ms,
+        "plain_ms": hat_plain_ms,
+        "bound_ms": hat_bound_ms,
+        "bound_by": hat_bound_by,
+        "library_ms": hat_library_ms,
     }]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -351,6 +681,7 @@ def main(argv):
 # kernel families of a dispatch's device time, by substring of the kernel
 # name, first match wins
 KERNEL_FAMILIES = (
+    ("hat resample kernel", ("hat_resample",)),
     ("resample kernel", ("resample_correlation",)),
     ("conv FFT", ("fft", "pointwise_mult_and_sum_complex")),
     ("conv implicit GEMM", ("fprop", "convolve")),

@@ -6,8 +6,10 @@ portable, implemented with a small self-contained node class (no yacs).
 A copy of `os2d_tpu/config.py` with the same keys and defaults, so that a
 config edit means the same thing to both packages. The additions grouped
 under `cfg.tpu` keep their names; the PyTorch port reads the ones on its
-eval path (`eval_class_chunk`, `eval_pre_top_k`, `eval_top_k`) and ignores
-the rest.
+eval path (`eval_class_chunk`, `eval_pre_top_k`, `eval_top_k`,
+`eval_class_prescreen`), refuses in `engine.evaluate.evaluate` those whose
+paths are not ported (`device_side_pyramid=False`, `quantize_class_feats`,
+`fold_bn`, `upload_pixel_format="yuv420"`) and ignores the rest.
 """
 
 from __future__ import annotations
@@ -263,7 +265,8 @@ def get_default_cfg() -> ConfigNode:
         ),
         # --- additions of the JAX package, same names and defaults; what
         # each does on the TPU is documented in os2d_tpu/config.py. The port
-        # reads eval_class_chunk, eval_pre_top_k and eval_top_k. ---
+        # reads eval_class_chunk, eval_pre_top_k, eval_top_k and
+        # eval_class_prescreen (see the module docstring). ---
         tpu=_cn(
             compute_dtype="float32",
             resample_precision="default",

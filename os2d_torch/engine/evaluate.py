@@ -1,23 +1,56 @@
 """Evaluation engine, single device: counterpart of the eval path of
 `os2d_tpu/engine/evaluate.py` (the reference's os2d/engine/evaluate.py).
 
-`Evaluator.detect_images` takes a uint8 image batch through the normalized
-antialiased pyramid, the backbone at every level, the head over class chunks
-and the pyramid decode + NMS, and returns one packed [B, G, K, 6] tensor.
-Not ported yet: test-time class augmentation, the loss metrics, the
-prescreened path, meshes, int8 class banks and `evaluate()` to VOC mAP.
+- `Evaluator.detect_images` takes a uint8 image batch through the normalized
+  antialiased pyramid, the backbone at every level, the head over class
+  chunks and the pyramid decode + NMS, and returns one packed [B, G, K, 6]
+  tensor. With test-time class augmentation (TTA) the V views of a class are
+  contiguous rows of the class bank; each view is decoded as an extra
+  pyramid level, which gives the reference's joint per-class NMS over views.
+- `Evaluator.detect_images_prescreened` is the no-miss class prescreen: the
+  backbone once, per-class correlation ceilings, then the head and decode on
+  the surviving classes only.
+- `evaluate` runs a dataloader to VOC mAP.
+Not ported yet: the loss metrics (`criterion`), the host-pyramid and
+heatmap paths, visualisation, int8 class banks, BN folding and meshes.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import pickle
+import time
 from typing import Dict, List
 
 import numpy as np
 import torch
 
+from ..data.voc_eval import do_voc_evaluation
 from ..models.head import ClassHead
+from ..ops.geometry import l2_normalize_channels
 from ..ops.sampling import resize_bilinear_antialias
 from .decode import decode_pyramid
+
+
+def prescreen_margin(resample_precision: str) -> float:
+    """Safety margin of the class prescreen: a class survives phase 1 iff its
+    correlation ceiling > eval.nms_score_threshold - margin.
+
+    The ceiling bounds every score exactly in real arithmetic (see
+    `Evaluator.detect_images_prescreened`); the margin absorbs the worst-case
+    rounding difference between the phase-1 ceiling and the phase-2 scores
+    (os2d_tpu/engine/evaluate.py:37-63, margins unchanged):
+    - "highest"/"high": the fp32 gather; only summation-order ulps remain
+      -> 1e-4.
+    - "default": the hat kernel rounds corr*mask and the hat rows to bf16
+      (2^-9 relative each); for cosine scores |corr| <= 1 the combined
+      absolute error is <= ~2^-8 ~= 4e-3.
+    A larger margin only admits extra classes (slower, never wrong)."""
+    margins = {"highest": 1e-4, "high": 1e-4, "default": 4e-3}
+    if resample_precision not in margins:
+        raise ValueError(f"no prescreen margin for resample_precision {resample_precision!r}")
+    return margins[resample_precision]
 
 
 def unpack_detections(packed) -> Dict[str, np.ndarray]:
@@ -31,14 +64,57 @@ def unpack_detections(packed) -> Dict[str, np.ndarray]:
     }
 
 
+def augment_class_images(class_images: List, mode: str):
+    """Expand class images with TTA views; returns (views, num_views_per_class).
+
+    View layout matches the reference (evaluate.py:241-269): per class,
+    contiguous [orig, rot90, rot180, rot270] / [orig, flip] / all 8.
+    Images are [h, w, 3] arrays (or CPU tensors); rot90 rotates in the (h, w)
+    plane like torch rot90(1, [H, W]); horflip flips the width axis.
+    """
+    if not mode:
+        return list(class_images), 1
+    views = []
+    for im in class_images:
+        im = np.asarray(im)
+        if mode == "rotation90":
+            im90 = np.rot90(im, 1, axes=(0, 1))
+            views += [im, im90, np.rot90(im90, 1, axes=(0, 1)),
+                      np.rot90(im90, 2, axes=(0, 1))]
+        elif mode == "horflip":
+            views += [im, im[:, ::-1]]
+        elif mode == "horflip_rotation90":
+            im90 = np.rot90(im, 1, axes=(0, 1))
+            im180 = np.rot90(im90, 1, axes=(0, 1))
+            im270 = np.rot90(im180, 1, axes=(0, 1))
+            views += [im, im90, im180, im270,
+                      im[:, ::-1], im90[:, ::-1], im180[:, ::-1], im270[:, ::-1]]
+        else:
+            raise RuntimeError(f"Unknown class_image_augmentation: {mode}")
+    num_views = {"rotation90": 4, "horflip": 2, "horflip_rotation90": 8}[mode]
+    return [np.ascontiguousarray(v) for v in views], num_views
+
+
 def _pad_classes(x, c_pad: int):
     if x.shape[0] == c_pad:
         return x
     return torch.cat([x, x.new_zeros((c_pad - x.shape[0],) + tuple(x.shape[1:]))])
 
 
-def _decode_and_pack(loc_p, cls_p, sizes, scales, cfg):
-    """Batched pyramid decode -> ONE packed [B, G, K, 6] tensor."""
+def _decode_and_pack(loc_p, cls_p, sizes, scales, num_views, cfg):
+    """View split + batched pyramid decode -> ONE packed [B, G, K, 6] tensor.
+
+    loc_p/cls_p rows must be a multiple of num_views (views of one class are
+    contiguous); the v::num_views split decodes each view as an extra
+    pyramid level, for joint per-class NMS over views."""
+    if num_views > 1:
+        if loc_p[0].shape[1] % num_views:
+            raise ValueError(f"{loc_p[0].shape[1]} class rows do not split into "
+                             f"{num_views} views")
+        loc_p = [lp[:, v::num_views] for lp in loc_p for v in range(num_views)]
+        cls_p = [cp[:, v::num_views] for cp in cls_p for v in range(num_views)]
+        sizes = [s for s in sizes for _ in range(num_views)]
+        scales = [s for s in scales for _ in range(num_views)]
     out = decode_pyramid(
         loc_p, cls_p, sizes, scales,
         nms_iou_threshold=float(cfg.eval.nms_iou_threshold),
@@ -52,34 +128,25 @@ def _decode_and_pack(loc_p, cls_p, sizes, scales, cfg):
 
 
 class Evaluator:
-    """Multiscale one-shot detection with a model on one device."""
+    """Multiscale one-shot detection with a model on one device.
+
+    `prescreen_pruned` counts the (batch, class) pairs that the prescreen
+    skipped since the Evaluator was made."""
 
     def __init__(self, model, cfg):
         self.model = model
         self.cfg = cfg
+        self.prescreen_pruned = 0
 
     def build_class_heads(self, class_images: List, class_image_augmentation: str = ""):
-        """Class images (normalized [h, w, 3]) -> (ClassHead, num_views)."""
-        if class_image_augmentation:
-            raise NotImplementedError("test-time class augmentation is not ported")
-        return self.model.build_class_head_from_images(class_images), 1
+        """Class images (normalized [h, w, 3]) -> (ClassHead, num_views), the
+        views of each class in contiguous rows."""
+        views, num_views = augment_class_images(class_images, class_image_augmentation)
+        return self.model.build_class_head_from_images(views), num_views
 
-    @torch.no_grad()
-    def detect_images(self, images_u8, class_head: ClassHead, level_sizes,
-                      inverse_scales, img_normalization, num_views: int = 1):
-        """uint8 image batch [B, H, W, 3] in -> top-K detections out as a
-        packed [B, G, K, 6] tensor (x1, y1, x2, y2, score, valid) on the
-        model's device; unpack on the host with `unpack_detections`.
-
-        Args:
-          level_sizes: FeatureMapSize (w, h) of each pyramid level.
-          inverse_scales: per level (sx, sy) back to the input image.
-          img_normalization: {"mean": 3 floats, "std": 3 floats}.
-        """
-        if num_views != 1:
-            raise NotImplementedError("test-time class augmentation is not ported")
-        model, cfg = self.model, self.cfg
-        device = model.device
+    def _pyramid_features(self, images_u8, level_sizes, img_normalization):
+        """uint8 [B, H, W, 3] -> backbone feature maps, one per level."""
+        device = self.model.device
         images = torch.as_tensor(images_u8, device=device)
         if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(f"images must be uint8 [B, H, W, 3], got "
@@ -87,30 +154,288 @@ class Evaluator:
         mean = torch.tensor(img_normalization["mean"], dtype=torch.float32, device=device)
         std = torch.tensor(img_normalization["std"], dtype=torch.float32, device=device)
         img = (images.float() / 255.0 - mean) / std
-
-        # class chunks bound the [B, chunk, H, W, 225] correlation tensor at
-        # the largest level; the last chunk is zero-padded to the full size
-        chunk = int(cfg.tpu.eval_class_chunk)
-        c_total = class_head.class_feats.shape[0]
-        c_pad = -(-c_total // chunk) * chunk
-        feats = _pad_classes(class_head.class_feats, c_pad)
-        mask = _pad_classes(class_head.pool_mask, c_pad)
-
-        loc_p, cls_p = [], []
+        fms = []
         for sz in level_sizes:
             if (sz.h, sz.w) == tuple(img.shape[1:3]):
                 level = img
             else:
                 level = resize_bilinear_antialias(img, sz.h, sz.w)
-            fm = model.extract_features(level)
+            fms.append(self.model.extract_features(level))
+        return fms
+
+    def _score_levels(self, fms, feats, mask):
+        """Head over class chunks at every level -> (loc_p, cls_p) per level,
+        [B, C, 4, A_l] and [B, C, A_l]. Chunks of cfg.tpu.eval_class_chunk
+        bound the [B, chunk, H, W, 225] correlation tensor; the last chunk is
+        zero-padded to the full size and the padding trimmed."""
+        chunk = int(self.cfg.tpu.eval_class_chunk)
+        c_total = feats.shape[0]
+        c_pad = -(-c_total // chunk) * chunk
+        feats = _pad_classes(feats, c_pad)
+        mask = _pad_classes(mask, c_pad)
+        loc_p, cls_p = [], []
+        for fm in fms:
             locs, clss = [], []
             for start in range(0, c_pad, chunk):
-                out = model.apply_head(
+                out = self.model.apply_head(
                     fm, ClassHead(feats[start:start + chunk], mask[start:start + chunk]))
                 locs.append(out["loc"])
                 clss.append(out["cls"])
             loc_p.append(torch.cat(locs, dim=1)[:, :c_total])
             cls_p.append(torch.cat(clss, dim=1)[:, :c_total])
+        return loc_p, cls_p
 
+    @torch.no_grad()
+    def detect_images(self, images_u8, class_head: ClassHead, level_sizes,
+                      inverse_scales, img_normalization, num_views: int = 1):
+        """uint8 image batch [B, H, W, 3] in -> top-K detections out as a
+        packed [B, G, K, 6] tensor (x1, y1, x2, y2, score, valid) on the
+        model's device, G = classes / num_views; unpack on the host with
+        `unpack_detections`.
+
+        Args:
+          level_sizes: FeatureMapSize (w, h) of each pyramid level.
+          inverse_scales: per level (sx, sy) back to the input image.
+          img_normalization: {"mean": 3 floats, "std": 3 floats}.
+          num_views: TTA views per class (contiguous rows of class_head).
+        """
+        fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
+        loc_p, cls_p = self._score_levels(fms, class_head.class_feats, class_head.pool_mask)
         return _decode_and_pack(loc_p, cls_p, list(level_sizes),
-                                [tuple(s) for s in inverse_scales], cfg)
+                                [tuple(s) for s in inverse_scales], num_views, self.cfg)
+
+    def prescreen_applicable(self) -> bool:
+        """The no-miss class prescreen is available when the decode threshold is
+        finite (scores are mask-weighted averages of correlations, so the
+        per-class correlation ceiling bounds every decodable score) and
+        cfg.tpu.eval_class_prescreen is on. Under nms_across_classes the
+        padded duplicate rows are score-masked to -inf in phase 2 so they
+        cannot suppress real detections; pruned classes cannot suppress
+        anything either (they have no detections above the threshold)."""
+        return (bool(self.cfg.tpu.eval_class_prescreen)
+                and bool(np.isfinite(float(self.cfg.eval.nms_score_threshold))))
+
+    @torch.no_grad()
+    def detect_images_prescreened(self, images_u8, class_head: ClassHead, level_sizes,
+                                  inverse_scales, img_normalization, num_views: int = 1):
+        """Two-phase detection (no-miss prescreen: no detection above the
+        threshold is dropped, up to the rounding margin of `prescreen_margin`).
+
+        Phase 1: pyramid + backbone once, then per-class correlation ceilings
+        max over (image, anchor, template cell) of corr[c]. The resampled
+        recognition score is a convex combination of correlation values
+        (bilinear or hat weights and the pool mask are non-negative and sum
+        to 1; the border clamp only repeats values), so a class whose
+        ceiling is <= eval.nms_score_threshold cannot produce a valid
+        detection: decode drops scores <= threshold. The ceiling's GEMM and
+        max are plain torch.matmul/amax (JAX computes them outside any Pallas
+        kernel).
+        Phase 2: alignment + resample + decode on ONLY the surviving classes'
+        rows, padded to a power-of-two number of class chunks with duplicates
+        of row 0 whose scores are masked to -inf; the feature maps stay on the
+        device between the phases. Returns the same packed [B, G, K, 6] tensor
+        as detect_images, with pruned classes all-invalid.
+        """
+        cfg = self.cfg
+        feats_bank, pool_mask = class_head.class_feats, class_head.pool_mask
+        c_total, f = feats_bank.shape[0], feats_bank.shape[-1]
+        n_groups = c_total // num_views
+        threshold = float(cfg.eval.nms_score_threshold)
+        top_k = int(cfg.tpu.eval_top_k)
+        chunk = int(cfg.tpu.eval_class_chunk)
+        device = self.model.device
+
+        fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
+        n_img = fms[0].shape[0]
+        ceil = torch.full((c_total,), float("-inf"), dtype=torch.float32, device=device)
+        for fm in fms:
+            fmn = l2_normalize_channels(fm, eps=1e-5, dim=-1).reshape(-1, f)
+            for start in range(0, c_total, chunk):
+                feats = feats_bank[start:start + chunk]
+                corr = fmn @ feats.reshape(-1, f).T  # [B*A, n*225]
+                top = corr.reshape(corr.shape[0], feats.shape[0], -1).amax(dim=(0, 2))
+                ceil[start:start + feats.shape[0]] = torch.maximum(
+                    ceil[start:start + feats.shape[0]], top)
+        # group ceilings over TTA views; the margin absorbs the rounding
+        # difference between the phases
+        margin = prescreen_margin(self.model.config.resample_precision)
+        ceil_groups = ceil.cpu().numpy().reshape(n_groups, num_views).max(1)
+        sel = np.nonzero(ceil_groups > threshold - margin)[0]
+        self.prescreen_pruned += n_groups - int(sel.size)
+        full = torch.zeros((n_img, n_groups, top_k, 6), dtype=torch.float32, device=device)
+        if sel.size == 0:
+            return full
+
+        # the surviving rows, padded to a power-of-two chunk count (as the
+        # JAX package pads them to bound its compiled programs)
+        n_sel_rows = int(sel.size) * num_views
+        n_chunks_total = -(-c_total // chunk)
+        n_chunks2 = max(1, -(-n_sel_rows // chunk))
+        n_chunks2 = min(1 << (n_chunks2 - 1).bit_length(), n_chunks_total)
+        c_sel_pad = n_chunks2 * chunk
+        row_idx = (sel[:, None] * num_views + np.arange(num_views)).reshape(-1)
+        row_idx = np.concatenate([row_idx, np.zeros((c_sel_pad - n_sel_rows,), np.int64)])
+        rows = torch.as_tensor(row_idx, device=device)
+        loc_p, cls_p = self._score_levels(fms, feats_bank[rows], pool_mask[rows])
+        # c_sel_pad need not divide into views: trim to the largest
+        # view-aligned row count (the real rows are within it)
+        g_rows = (c_sel_pad // num_views) * num_views
+        row_valid = torch.arange(g_rows, device=device) < n_sel_rows
+        loc_p = [lp[:, :g_rows] for lp in loc_p]
+        # padded duplicate rows must not suppress real ones in a joint
+        # (nms_across_classes) NMS: decode drops their -inf scores
+        cls_p = [torch.where(row_valid[None, :, None], cp[:, :g_rows], float("-inf"))
+                 for cp in cls_p]
+        packed = _decode_and_pack(loc_p, cls_p, list(level_sizes),
+                                  [tuple(s) for s in inverse_scales], num_views, cfg)
+        full[:, torch.as_tensor(sel, device=device)] = packed[:, :sel.size]
+        return full
+
+
+def _unported_eval_options(cfg, criterion, mesh):
+    unported = []
+    if criterion is not None:
+        unported.append("criterion (the eval loss metrics)")
+    if mesh is not None:
+        unported.append("a mesh")
+    if not bool(cfg.tpu.device_side_pyramid):
+        unported.append("cfg.tpu.device_side_pyramid=False (the host-pyramid path)")
+    viz = cfg.visualization.eval
+    for flag in ("show_class_heatmaps", "show_detections", "show_gt_boxes"):
+        if bool(viz[flag]):
+            unported.append(f"cfg.visualization.eval.{flag}")
+    if bool(cfg.tpu.quantize_class_feats):
+        unported.append("cfg.tpu.quantize_class_feats (int8 class banks)")
+    if bool(cfg.tpu.fold_bn):
+        unported.append("cfg.tpu.fold_bn")
+    pixel_format = str(cfg.tpu.upload_pixel_format)
+    if pixel_format == "yuv420":
+        unported.append("cfg.tpu.upload_pixel_format='yuv420'")
+    elif pixel_format not in ("auto", "rgb8"):
+        raise ValueError(f"unknown cfg.tpu.upload_pixel_format {pixel_format!r}")
+    return unported
+
+
+def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=False,
+             logger_prefix="OS2D.eval", mesh=None):
+    """Full-dataset evaluation -> {mAP@iou: value, ...}
+    (os2d/engine/evaluate.py:21-174; the fused path of
+    os2d_tpu/engine/evaluate.py:1003-1325).
+
+    The model owns its weights (an `Os2dModel`). Batches of one size bucket
+    are uploaded as uint8 (`cfg.tpu.upload_pixel_format` "auto" and "rgb8"
+    both mean rgb8) and detected with TTA views when
+    cfg.eval.class_image_augmentation is set, through the class prescreen
+    when cfg.eval.nms_score_threshold is finite. The host unpacks batch i
+    after batch i+1 was issued. With the prescreen, results also hold
+    "prescreen_pruned": the (batch, class) pairs it skipped.
+    Options of the JAX package that are not ported raise NotImplementedError.
+    """
+    unported = _unported_eval_options(cfg, criterion, mesh)
+    if unported:
+        raise NotImplementedError("not ported to os2d_torch: " + "; ".join(unported))
+    logger = logging.getLogger(f"{logger_prefix}.evaluate")
+    dataset_name = dataloader.get_name()
+    logger.info(f"Starting evaluation on {dataset_name}")
+    t_start = time.time()
+
+    evaluator = Evaluator(model, cfg)
+    class_images, _, class_ids = dataloader.get_all_class_images()
+    class_head, num_views = evaluator.build_class_heads(
+        class_images, cfg.eval.class_image_augmentation)
+    img_norm = dataloader.img_normalization
+    batch_size = max(1, int(cfg.eval.batch_size))
+    use_prescreen = evaluator.prescreen_applicable()
+    detect = evaluator.detect_images_prescreened if use_prescreen else evaluator.detect_images
+    if use_prescreen:
+        logger.info("eval path: two-phase (no-miss class prescreen at score threshold "
+                    f"{float(cfg.eval.nms_score_threshold)})")
+
+    predictions, gts, all_image_ids = [], [], []
+
+    def _finalize(batch_ids_b, initial_sizes_b, packed):
+        """Unpacks a batch's packed detections (one device -> host copy) and
+        records every genuine image row (padded tail rows are skipped)."""
+        out = unpack_detections(packed)
+        for i_image, image_id in enumerate(batch_ids_b):
+            valid = out["valid"][i_image]
+            labels = np.repeat(np.asarray(class_ids, np.int64), valid.sum(1))
+            init_size = initial_sizes_b[i_image]
+            predictions.append({
+                "boxes": out["boxes"][i_image][valid],
+                "scores": out["scores"][i_image][valid],
+                "labels": labels,
+                "image_size": (init_size.w, init_size.h),
+            })
+            all_image_ids.append(image_id)
+            ann = dataloader.dataset.get_image_annotation_for_imageid(image_id)
+            gts.append({
+                "boxes": ann.bbox_xyxy,
+                "labels": ann.get_field("labels"),
+                "difficult": ann.get_field("difficult"),
+                "image_size": (ann.image_size.w, ann.image_size.h),
+            })
+
+    pending = None
+    for (batch_ids, base_images, level_sizes, inv_scales,
+         initial_sizes) in dataloader.make_raw_iterator_for_all_images(batch_size):
+        # a partial tail batch repeats its last image (a bucket's images share
+        # one size); only the genuine rows are recorded
+        stacked = np.stack(base_images + [base_images[-1]] * (batch_size - len(base_images)))
+        images = torch.as_tensor(stacked, device=model.device)
+        packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
+                        num_views=num_views)
+        if pending is not None:
+            _finalize(*pending)
+        pending = (batch_ids, initial_sizes, packed)
+    if pending is not None:
+        _finalize(*pending)
+
+    results = _finish_evaluation(predictions, gts, cfg, class_ids, dataset_name, t_start,
+                                 print_per_class_results, logger, image_ids=all_image_ids)
+    if use_prescreen:
+        results["prescreen_pruned"] = evaluator.prescreen_pruned
+    return results
+
+
+def _finish_evaluation(predictions, gts, cfg, class_ids, dataset_name, t_start,
+                       print_per_class_results, logger, image_ids):
+    results = {}
+
+    # optional raw-detection dump (reference evaluate.py:136-149; pickle
+    # instead of torch.save: everything here is plain numpy)
+    save_dir = str(cfg.visualization.eval.path_to_save_detections)
+    if save_dir:
+        data = {
+            "image_ids": list(image_ids),
+            "boxes_xyxy": [p["boxes"] for p in predictions],
+            "labels": [p["labels"] for p in predictions],
+            "scores": [p["scores"] for p in predictions],
+            "gt_boxes_xyxy": [np.asarray(g["boxes"]) for g in gts],
+            "gt_labels": [np.asarray(g["labels"]) for g in gts],
+            "gt_difficults": [np.asarray(g["difficult"]) for g in gts],
+        }
+        os.makedirs(save_dir, exist_ok=True)
+        save_path = os.path.join(save_dir, f"{dataset_name}_detections.pkl")
+        with open(save_path, "wb") as f:
+            pickle.dump(data, f)
+        logger.info(f"Saved detections to {save_path}")
+    for iou_thresh in cfg.eval.mAP_iou_thresholds:
+        res = do_voc_evaluation(predictions, gts, iou_thresh=iou_thresh)
+        results[f"mAP@{iou_thresh:0.2f}"] = res["map"]
+        results[f"mAPw@{iou_thresh:0.2f}"] = res["map_weighted"]
+        results[f"recall@{iou_thresh:0.2f}"] = res["recall"]
+        results[f"AP_joint_classes@{iou_thresh:0.2f}"] = res["ap_joint_classes"]
+        if print_per_class_results:
+            for cid in sorted(set(int(c) for c in class_ids)):
+                if cid < len(res["ap_per_class"]):
+                    results[f"mAP@{iou_thresh:0.2f}_class_{cid}"] = float(
+                        res["ap_per_class"][cid])
+        logger.info(
+            f"{dataset_name} mAP@{iou_thresh}: {res['map']:0.4f} "
+            f"(weighted {res['map_weighted']:0.4f}, recall {res['recall']:0.4f})"
+        )
+
+    results["eval_time"] = time.time() - t_start
+    logger.info(f"Evaluation on {dataset_name} took {results['eval_time']:0.2f}s")
+    return results

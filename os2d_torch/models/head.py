@@ -23,6 +23,7 @@ from ..ops.geometry import (
     invert_affine_2x3,
     l2_normalize_channels,
 )
+from ..ops.hat_resample import resample_correlation_hat
 from ..ops.resample import resample_correlation
 from ..ops.sampling import linspace, resize_bilinear_align_corners
 from ..structures.boxes import clip_to_min_size, encode_boxes, strided_anchor_grid
@@ -48,7 +49,9 @@ ANCHOR_BOX, ANCHOR_STRIDE = compose_receptive_field(
 
 POOL_BORDER_WIDTH = 2
 
-# precisions of the JAX package's resample; all run the fp32 kernel here
+# the resample tiers of the JAX package that are ported: "default" runs the
+# bf16 hat-weight product (csrc/hat_resample.cu), "high" and "highest" the
+# fp32 gather (csrc/resample.cu)
 RESAMPLE_PRECISIONS = ("highest", "high", "default")
 
 
@@ -127,8 +130,10 @@ def head_forward(
       transform_net: the TransformNet module.
       image_feature_maps: [B, H, W, F] backbone features (not yet normalized).
       class_head: ClassHead with [C, 15, 15, F] normalized feats.
-      resample_precision: "highest", "high" and "default" all run the fp32
-        resample; "int8" is not ported.
+      resample_precision: "default" runs the resample as the bf16 hat-weight
+        product with fp32 sums (ops/hat_resample.py, the one-pass bf16 tier of
+        os2d_tpu/ops/sampling.py); "high" and "highest" run the fp32 gather
+        (ops/resample.py); "int8" is not ported.
       corr_interior_first: only the interior-first channel order (the JAX
         default) is ported.
 
@@ -198,7 +203,10 @@ def head_forward(
     gy = ((ly * fy_a + fy_b) / (h - 1) * 2.0 - 1.0).clamp(-1.0, 1.0)
     px = (gx + 1.0) * 0.5 * (w - 1)
     py = (gy + 1.0) * 0.5 * (h - 1)
-    cls = resample_correlation(corr[..., :n_int], px, py, mask_t)
+    if resample_precision == "default":
+        cls = resample_correlation_hat(corr[..., :n_int], px, py, mask_t)
+    else:
+        cls = resample_correlation(corr[..., :n_int], px, py, mask_t)
 
     # (2) localization: envelope + corners in closed form from theta w.r.t.
     # image-level anchors (box 240, stride 16)

@@ -42,8 +42,9 @@ class Os2dConfig:
     normalization_mean: tuple = IMG_NORMALIZATION_MEAN
     normalization_std: tuple = IMG_NORMALIZATION_STD
     compute_dtype: str = "float32"
-    resample_precision: str = "default"  # "highest" | "high" | "default":
-    # all run the fp32 resample kernel; "int8" is not ported
+    resample_precision: str = "default"  # "default": the bf16 hat-weight
+    # resample (csrc/hat_resample.cu); "high" | "highest": the fp32 gather
+    # (csrc/resample.cu); "int8" is not ported
     corr_interior_first: bool = True  # correlation channels with the
     # pool-mask interior as a contiguous prefix (the only order ported)
 

@@ -31,7 +31,9 @@ KERNEL = CudaKernel(
 _MAX_GRID_Y = 65535
 
 
-def _check_contract(corr, px, py, mask_t):
+def check_contract(corr, px, py, mask_t):
+    """Raise ValueError unless the arguments meet the module's contract
+    (shared by the hat resample of `ops/hat_resample.py`)."""
     if corr.dim() != 5:
         raise ValueError(f"corr must be [B, C, H, W, T_full], got {tuple(corr.shape)}")
     b, c, h, w, t_full = corr.shape
@@ -65,7 +67,7 @@ def _check_contract(corr, px, py, mask_t):
 def resample_correlation(corr, px, py, mask_t):
     """Scores [B, C, H, W]: the kernel on CUDA tensors, the plain version on
     CPU tensors (see the module docstring for the contract)."""
-    _check_contract(corr, px, py, mask_t)
+    check_contract(corr, px, py, mask_t)
     if corr.device.type == "cpu":
         return resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
     if corr.device.type != "cuda":

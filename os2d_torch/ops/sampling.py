@@ -1,9 +1,11 @@
 """Bilinear sampling ops: align-corners resize, the antialiased pyramid
-resize, and the plain version of the correlation-map resample.
+resize, and the plain versions of the two correlation-map resamples.
 
 Counterpart of `os2d_tpu/ops/sampling.py`. The resample itself runs through
-`ops/resample.py`, whose CUDA kernel is held against
-`resample_correlation_from_pxpy_reference` below.
+`ops/resample.py` (fp32 gather; its CUDA kernel is held against
+`resample_correlation_from_pxpy_reference` below) or `ops/hat_resample.py`
+(bf16 hat-weight product; its CUDA kernel is held against
+`hat_resample_reference` below).
 """
 
 from __future__ import annotations
@@ -147,4 +149,54 @@ def resample_correlation_from_pxpy_reference(corr, px, py, mask_t):
             + gather(plane, y0i + 1, x0i + 1) * wx * wy
         )  # [B, C, A]
         scores = scores + sampled * mask_t[None, :, t, None]
+    return scores.reshape(b, c, h, w)
+
+
+def hat_resample_operand(corr, mask_t):
+    """The hat resample's bf16 operand M [B, C, T, H, W], contiguous:
+    corr[..., t] * mask_t[c, t] multiplied in fp32, then rounded to bf16 (the
+    order of `os2d_tpu/ops/pallas_hat_resample.py`, which folds the mask into
+    corr before its in-kernel cast). One pass over the corr prefix."""
+    b, c, h, w, _ = corr.shape
+    t = mask_t.shape[1]
+    m = torch.empty((b, c, t, h, w), dtype=torch.bfloat16, device=corr.device)
+    torch.mul(corr[..., :t].permute(0, 1, 4, 2, 3), mask_t[None, :, :, None, None], out=m)
+    return m
+
+
+def _hat(p, iota):
+    return torch.clamp(1.0 - (p[..., None] - iota).abs(), min=0.0)
+
+
+def hat_resample_reference(corr, px, py, mask_t):
+    """Plain PyTorch version of the `"default"`-tier resample + masked pool
+    (the hat-weight form of `os2d_tpu/ops/pallas_hat_resample.py`), on the
+    t-major contract of `resample_correlation_from_pxpy_reference`:
+
+      out[b, c, a] = sum_t sum_w (wy_t @ M_t)[a, w] * wx_t[a, w]
+
+    with M = `hat_resample_operand(corr, mask_t)` (bf16), the hat rows
+    wy_t[a, h] = max(0, 1 - |py - h|) rounded to bf16, wx_t[a, w] =
+    max(0, 1 - |px - w|) in fp32, and every sum in fp32, t in order. It
+    rounds at the CUDA kernel's points; the kernel's tensor cores add the
+    product's terms in another order, so the two agree to a tolerance, not
+    to the bit.
+
+    Args:
+      corr: [B, C, H, W, T_full] with T_full >= T (a prefix view is taken
+        as it is).
+      px, py: [B, C, T, A] pixel-space sample coordinates, A = H * W.
+      mask_t: [C, T] pool mask in the same t order.
+    Returns scores [B, C, H, W].
+    """
+    b, c, h, w, _ = corr.shape
+    f32 = torch.float32
+    m = hat_resample_operand(corr, mask_t).to(f32)  # bf16 values, exact in fp32
+    iota_h = torch.arange(h, dtype=f32, device=corr.device)
+    iota_w = torch.arange(w, dtype=f32, device=corr.device)
+    scores = torch.zeros((b, c, h * w), dtype=f32, device=corr.device)
+    for t in range(px.shape[2]):
+        wy = _hat(py[:, :, t], iota_h).to(torch.bfloat16).to(f32)  # [B, C, A, H]
+        r = torch.matmul(wy, m[:, :, t])  # [B, C, A, W]: exact products, fp32 sums
+        scores = scores + (r * _hat(px[:, :, t], iota_w)).sum(-1)
     return scores.reshape(b, c, h, w)

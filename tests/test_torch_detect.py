@@ -1,16 +1,20 @@
 """The slice as a whole: `Evaluator.detect_images` of the port against the JAX
-package's, with the full-width default model (ResNet50-C4, 1024 channels)
-converted from `os2d_tpu.models.init_os2d_params` (with a random final
-aligner layer in place of the zero init), on a uint8 batch (B=2),
-C=3 classes in chunks of 2 (the last one zero-padded) and two pyramid levels
-(one down, one up).
+package's, with the full-width model (ResNet50-C4, 1024 channels) converted
+from `os2d_tpu.models.init_os2d_params` (with a random final aligner layer in
+place of the zero init), on a uint8 batch (B=2), C=3 classes in chunks of 2
+(the last one zero-padded) and two pyramid levels (one down, one up). Both
+sides run the resample at precision "highest": JAX on the CPU runs every tier
+in exact fp32, while the port's "default" tier rounds to bf16 as its kernel
+does (that tier is held against the JAX hat kernel in
+tests/test_torch_hat_resample.py).
 
 Tolerances: identical valid flags; scores atol 1e-4 (fp32 backbone and head
 sums in another order, ~1e-6 measured); boxes 1e-2 px on valid detections.
 
 Then the planted-patch scenario of tests/test_end_to_end_eval.py on the port
-alone: each planted 240x240 class patch must be the top valid detection of
-its class, with IoU > 0.5.
+alone, at the default tier (`Os2dConfig()`, the bf16 hat resample) and at
+"highest": each planted 240x240 class patch must be the top valid detection
+of its class, with IoU > 0.5.
 """
 
 import numpy as np
@@ -55,8 +59,9 @@ def both_packed():
     norm = {"mean": jos2d.IMG_NORMALIZATION_MEAN, "std": jos2d.IMG_NORMALIZATION_STD}
     jcfg, tcfg = _cfgs()
 
-    jmodel = jos2d.Os2dModel(jos2d.Os2dConfig())
-    params = jos2d.init_os2d_params(jax.random.PRNGKey(0), jos2d.Os2dConfig())
+    jconfig = jos2d.Os2dConfig(resample_precision="highest")
+    jmodel = jos2d.Os2dModel(jconfig)
+    params = jos2d.init_os2d_params(jax.random.PRNGKey(0), jconfig)
     # a non-zero final aligner layer, so boxes move off the anchors
     lin = params["transform_net"]["linear"]
     lin["w"] = jnp.asarray(0.02 * rng.randn(*lin["w"].shape).astype(np.float32))
@@ -65,7 +70,7 @@ def both_packed():
     want = np.asarray(jev.detect_images(params, images, jhead,
                                         [JSize(w=w, h=h) for w, h in LEVELS], inv, norm))
 
-    model = Os2dModel(Os2dConfig(), device="cpu")
+    model = Os2dModel(Os2dConfig(resample_precision="highest"), device="cpu")
     model.load_state_dict(state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params)))
     ev = Evaluator(model, tcfg)
     head, num_views = ev.build_class_heads([torch.from_numpy(c) for c in class_images])
@@ -107,12 +112,12 @@ def _planted_scenes():
     return np.stack(scenes), patches
 
 
-def test_planted_patches_are_top_detections():
+def _check_planted(config):
     scenes, patches = _planted_scenes()
     cfg = get_default_cfg()
     cfg.tpu.eval_pre_top_k = 256
     cfg.tpu.eval_top_k = 16
-    model = Os2dModel(Os2dConfig(), device="cpu", seed=0)
+    model = Os2dModel(config, device="cpu", seed=0)
     mean = torch.tensor(model.config.normalization_mean)
     std = torch.tensor(model.config.normalization_std)
     class_images = [(torch.from_numpy(p).float() / 255.0 - mean) / std for p in patches]
@@ -130,3 +135,11 @@ def test_planted_patches_are_top_detections():
             iou = box_iou(torch.tensor(box[None]),
                           torch.tensor([[x0, y0, x0 + PATCH, y0 + PATCH]], dtype=torch.float32))
             assert float(iou) > 0.5, (image_id, cid, box, float(iou))
+
+
+def test_planted_patches_are_top_detections():
+    _check_planted(Os2dConfig())  # the default tier: the bf16 hat resample
+
+
+def test_planted_patches_highest_tier():
+    _check_planted(Os2dConfig(resample_precision="highest"))

@@ -1,8 +1,8 @@
 """Import and fallback hygiene of the PyTorch port.
 
 - No file of os2d_torch, nor chip_smoke.py, imports jax, jaxlib or os2d_tpu.
-- The resample wrapper has no `except` that could turn a failed kernel into
-  a silent CPU fallback.
+- The kernel wrappers (the fp32 gather and the bf16 hat resample) have no
+  `except` that could turn a failed kernel into a silent CPU fallback.
 - Os2dModel targets CUDA unless told otherwise, and raises without it.
 """
 
@@ -32,10 +32,28 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def _except_handlers(name):
+    tree = ast.parse((ROOT / "os2d_torch" / "ops" / name).read_text())
+    return [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+
+
 def test_resample_wrapper_has_no_except():
-    tree = ast.parse((ROOT / "os2d_torch" / "ops" / "resample.py").read_text())
-    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
-    assert not handlers
+    assert not _except_handlers("resample.py")
+
+
+def test_hat_resample_wrapper_has_no_except():
+    assert not _except_handlers("hat_resample.py")
+
+
+def test_port_modules_import():
+    """Every module of the package imports here, with no card and no nvcc:
+    nothing is built at import time."""
+    import importlib
+
+    for path in PORT_FILES:
+        if path.parent != ROOT:
+            name = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+            importlib.import_module(name.removesuffix(".__init__"))
 
 
 def test_model_defaults_to_cuda():

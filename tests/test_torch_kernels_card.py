@@ -5,18 +5,27 @@ file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_kernels_card.py -q
 
-Tolerance rtol 1e-5, atol 1e-6. The kernel rounds each product and sum as
-the plain version does, in the same order, so on the card the two agree to
-the bit; the tolerance is the one the plain version meets against JAX.
+Gather kernel (`csrc/resample.cu`): rtol 1e-5, atol 1e-6. The kernel rounds
+each product and sum as the plain version does, in the same order, so on the
+card the two agree to the bit; the tolerance is the one the plain version
+meets against JAX.
+
+Hat kernel (`csrc/hat_resample.cu`): rtol 1e-5, atol 1e-5. It rounds its
+operands to bf16 at the plain version's points, but its tensor cores add the
+product's terms in their own order, so the two agree to a few fp32 ulps.
 """
 
 import pytest
 import torch
 
-from os2d_torch.ops import resample
-from os2d_torch.ops.sampling import resample_correlation_from_pxpy_reference
+from os2d_torch.ops import hat_resample, resample
+from os2d_torch.ops.sampling import (
+    hat_resample_reference,
+    resample_correlation_from_pxpy_reference,
+)
 
 RTOL, ATOL = 1e-5, 1e-6
+HAT_RTOL, HAT_ATOL = 1e-5, 1e-5
 pytestmark = pytest.mark.cuda
 
 
@@ -54,3 +63,24 @@ def test_resample_kernel_rejects_mixed_devices(cuda_gen):
     corr, px, py, mask_t = _inputs(1, 2, 4, 5, cuda_gen)
     with pytest.raises(ValueError, match="is on"):
         resample.resample_correlation(corr, px.cpu(), py, mask_t)
+
+
+# ragged small shapes (H not a multiple of 16, W not of 8) and every level
+# of the bench protocol (1280x960 at [0.5, 0.625, 0.8, 1, 1.2, 1.4, 1.6],
+# B=2, C=16): the kernel is compiled once per 16 rows of H, and these
+# levels need five of those versions
+BENCH_FMS = [(30, 40), (38, 50), (48, 64), (60, 80), (72, 96), (84, 112), (96, 128)]
+
+
+@pytest.mark.parametrize("b,c,h,w", [(2, 3, 6, 7), (2, 3, 19, 23)]
+                         + [(2, 16, h, w) for h, w in BENCH_FMS])
+def test_hat_kernel_matches_plain(b, c, h, w, cuda_gen):
+    corr, px, py, mask_t = _inputs(b, c, h, w, cuda_gen)
+    before = hat_resample.KERNEL.launches
+    got = hat_resample.resample_correlation_hat(corr[..., :121], px, py, mask_t)
+    torch.cuda.synchronize()
+    want = hat_resample_reference(corr[..., :121], px, py, mask_t)
+    torch.testing.assert_close(got, want, rtol=HAT_RTOL, atol=HAT_ATOL)
+    assert hat_resample.KERNEL.launches == before + 1
+    exact = resample_correlation_from_pxpy_reference(corr[..., :121], px, py, mask_t)
+    assert float((got - exact).abs().max()) <= 4e-3
