@@ -7,7 +7,8 @@
 The model is `Os2dConfig()` at full width (ResNet50-C4, 1024 channels) with
 seeded random weights. Its resample runs at the "default" tier, the bf16 hat
 kernel (csrc/hat_resample.cu); the "highest" tier runs the fp32 gather kernel
-(csrc/resample.cu). Phases, each printing one JSON line:
+(csrc/resample.cu). Both share the tile skeleton csrc/resample_tile.cuh.
+Phases, each printing one JSON line:
   1. env      the card (nvidia-smi name and power limit), torch/CUDA versions,
               the TF32 flags as the model sets them, and the kernel builds
               (one nvcc per source in os2d_torch/csrc, all started together,
@@ -15,8 +16,13 @@ kernel (csrc/hat_resample.cu); the "highest" tier runs the fp32 gather kernel
   2. kernel   each kernel against its plain PyTorch version: the gather at
               rtol 1e-5, atol 1e-6; the hat kernel at rtol 1e-5, atol 1e-5
               and within 4e-3 (the "default" prescreen margin) of the exact
-              fp32 gather. Ragged small shapes and every level of the bench
-              protocol (B=2, C=16).
+              fp32 gather; whether each agreed to the bit. Ragged small
+              shapes (a single row and column among them), every level of
+              the bench protocol (B=2, C=16) and C=128 at the largest, each
+              with uniform px/py (almost no corr sector read twice) and with
+              near-identity px/py (a tile's rows share each sector, as on
+              the main path); px/py up to 0.5 outside the map; H=300;
+              B*C = 65600.
   3. planted  the planted-patch scenes of tests/test_end_to_end_eval.py
               through Evaluator.detect_images at the default tier: each patch
               must be the top valid detection of its class (IoU > 0.5), and
@@ -38,13 +44,15 @@ kernel (csrc/hat_resample.cu); the "highest" tier runs the fp32 gather kernel
               dispatches; the hat kernel must launch 7 times per dispatch.
   7. main_highest  the same protocol at resample_precision="highest": the
               gather kernel must launch 7 times per dispatch.
+     tiers    both tiers in turns (default, highest, highest, default, four
+              rounds): median img/s and spread of each.
   8. main_path_inputs / resample_timing  one more default-tier dispatch with
               the head's resample inputs captured at every level: both
-              kernels held against their plain versions there; then their
-              CUDA-event times per launch on the largest level, beside their
-              bounds, their plain versions and a library yardstick each
-              (F.grid_sample for the gather, cuBLAS bf16 matmuls over
-              materialised hat rows for the hat kernel; the port calls
+              kernels held against their plain versions there, with their
+              CUDA-event times per level; then their times per launch on
+              the largest level, beside their bounds, their
+              plain versions and one PyTorch call each that computes the
+              same function (F.grid_sample and a masked sum; the port calls
               neither).
 Launch counts are set to 0 just before each of phases 3-7 and read just
 after it; a phase whose kernel was not launched fails. Then one
@@ -60,18 +68,20 @@ import sys
 import tempfile
 import time
 
-# H100 SXM published peaks: HBM bytes/s, fp32 (non-tensor-core) flop/s and
-# dense bf16 tensor-core flop/s
+# H100 SXM published peaks: HBM bytes/s and fp32 (non-tensor-core) flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 # flops per template-point sample in the gather resample: floor x2,
 # fractions x2, complements x2, 8 weight products, 4 corner products summed,
 # mask multiply-add
 RESAMPLE_FLOPS_PER_SAMPLE = 20
+# and in the banded hat form: floor x2, four hat weights (two subtracts and
+# a max each), four mask products, four row products and two row sums, two
+# column products and their sum, the accumulate
+HAT_FLOPS_PER_SAMPLE = 28
 RTOL, ATOL = 1e-5, 1e-6
-# the hat kernel rounds its operands at the plain version's points but its
-# tensor cores sum the product's terms in their own order
+# the hat kernel rounds at its plain version's points and so agrees with it
+# to the bit; this is the gate it has had since it ran on the tensor cores
 HAT_RTOL, HAT_ATOL = 1e-5, 1e-5
 DEFAULT_TIER_MARGIN = 4e-3  # engine.evaluate.prescreen_margin("default")
 
@@ -80,7 +90,7 @@ PYRAMID = [0.5, 0.625, 0.8, 1, 1.2, 1.4, 1.6]
 NUM_CLASSES = 16
 BATCH = 2
 TIMED_DISPATCHES = 6
-TIMED_DISPATCHES_HIGHEST = 2
+TIER_ROUNDS = 4  # rounds of default, highest, highest, default in phase tiers
 PATCH = 240
 PLANTED = {0: [(48, 48, 0)], 1: [(336, 176, 1), (48, 112, 0)]}
 EVAL_PYRAMID = [0.8, 1.0]
@@ -134,20 +144,10 @@ def resample_bound(b, c, a, t):
                  FP32_FLOPS)
 
 
-def hat_bound(b, c, h, w, t):
-    """The hat kernel computes the gather's function with bf16-rounded
-    operands, so its bound is what that function needs: the gather's bytes,
-    or the banded hat product (the two non-zero hat weights of each row:
-    2*2*W flops per sample on the bf16 tensor cores) where that is larger.
-    The dense form's 2*B*C*T*A*H*W flops are not needed by the function;
-    `dense_hat_ms` gives their time apart."""
-    a = h * w
-    return bound(resample_bytes(b, c, a, t), 2 * b * c * t * a * 2 * w, BF16_FLOPS)
-
-
-def dense_hat_ms(b, c, h, w, t):
-    """The dense hat product's 2*B*C*T*A*H*W flops at the bf16 rate, in ms."""
-    return 2 * b * c * t * (h * w) * h * w / BF16_FLOPS * 1e3
+def hat_bound(b, c, a, t):
+    """The hat kernel: the gather's bytes, its banded fp32 operations
+    against the fp32 rate."""
+    return bound(resample_bytes(b, c, a, t), HAT_FLOPS_PER_SAMPLE * b * c * t * a, FP32_FLOPS)
 
 
 def max_err_checked(got, want, what, rtol=RTOL, atol=ATOL):
@@ -157,20 +157,41 @@ def max_err_checked(got, want, what, rtol=RTOL, atol=ATOL):
     return float((got - want).abs().max())
 
 
-def random_resample_inputs(b, c, h, w, gen):
+def random_resample_inputs(b, c, h, w, gen, kind, t_side=11):
+    """corr [B, C, H, W, 225] in tanh range, px/py [B, C, T, H*W], mask_t
+    [C, T]. kind "uniform": px/py spread over the map, some exactly on the
+    borders; "outside": the same reaching 0.5 past each border;
+    "near_identity": the anchor plus the template offset of the head's
+    identity transform (15-px anchor boxes, t = tx*11 + ty), jittered by up
+    to 0.25 px, as the main path with random weights gives them."""
     import torch
 
     dev = "cuda"
     corr = torch.tanh(torch.randn(b, c, h, w, 225, generator=gen, device=dev))
-    a, t = h * w, 121
-    px = torch.rand(b, c, t, a, generator=gen, device=dev) * (w - 1)
-    py = torch.rand(b, c, t, a, generator=gen, device=dev) * (h - 1)
-    px[:, :, :7] = 0.0
-    px[:, :, 7:14] = w - 1
-    py[:, :, 3:10] = 0.0
-    py[:, :, 10:17] = h - 1
+    t = t_side * t_side
+    shape = (b, c, t, h * w)
+    if kind in ("uniform", "outside"):
+        pad = 0.5 if kind == "outside" else 0.0
+        px = torch.rand(shape, generator=gen, device=dev) * (w - 1 + 2 * pad) - pad
+        py = torch.rand(shape, generator=gen, device=dev) * (h - 1 + 2 * pad) - pad
+        px[:, :, :7] = 0.0
+        px[:, :, 7:14] = w - 1
+        py[:, :, 3:10] = 0.0
+        py[:, :, 10:17] = h - 1
+    else:
+        ti = torch.arange(t, device=dev)
+        off_x = ((ti // t_side) - t_side // 2).float() * (15 / 14) + 0.5
+        off_y = ((ti % t_side) - t_side // 2).float() * (15 / 14) + 0.5
+        ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                                indexing="ij")
+
+        def jitter():
+            return (torch.rand(shape, generator=gen, device=dev) - 0.5) * 0.5
+
+        px = (xs.reshape(-1).float() + off_x[:, None] + jitter()).clamp(0, w - 1)
+        py = (ys.reshape(-1).float() + off_y[:, None] + jitter()).clamp(0, h - 1)
     mask_t = torch.full((c, t), 1.0 / t, device=dev)
-    return corr, px, py, mask_t
+    return corr, px.contiguous(), py.contiguous(), mask_t
 
 
 def planted_scenes():
@@ -293,18 +314,25 @@ def main(argv):
           "build_s": build_s, "built": sorted(logs), "ptxas": ptxas})
 
     # ---- 2. kernels against their plain versions ----
-    # ragged small shapes, then every level of the bench protocol (B=2,
-    # C=16): the hat kernel is compiled once per 16 rows of H, and the
-    # levels need five of those versions
+    # ragged small shapes (not multiples of the 8x32 anchor tile, a single
+    # row, a single column), every level of the bench protocol (B=2, C=16)
+    # and C=128 at the largest, each with uniform and with near-identity
+    # px/py; px/py reaching 0.5 outside the map; a map taller than 256
+    # rows; B*C above 65535
     sizes = [FeatureMapSize(w=int(IMG_W * s), h=int(IMG_H * s)) for s in PYRAMID]
     fms = [feature_map_size_for_image(sz) for sz in sizes]
-    shapes = [("ragged_6x7", (2, 3, 6, 7)), ("ragged_19x23", (2, 3, 19, 23))]
-    shapes += [(f"bench_{fm.h}x{fm.w}", (BATCH, NUM_CLASSES, fm.h, fm.w)) for fm in fms]
+    ragged = [(2, 3, 6, 7), (2, 3, 19, 23), (1, 2, 1, 7), (1, 2, 6, 1)]
+    shapes = ragged + [(BATCH, NUM_CLASSES, fm.h, fm.w) for fm in fms]
+    shapes += [(BATCH, 128, fms[-1].h, fms[-1].w)]
+    cases = [(shape, kind) for shape in shapes for kind in ("uniform", "near_identity")]
+    cases += [(shape, "outside") for shape in ragged]
+    cases += [((1, 2, 300, 7), "uniform"), ((2, 32800, 3, 2), "uniform")]
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"resample_correlation": {}, "hat_resample_correlation": {}}
     hat_exact_errs = {}
-    for name, (b, c, h, w) in shapes:
-        corr, px, py, mask_t = random_resample_inputs(b, c, h, w, gen)
+    for (b, c, h, w), kind in cases:
+        name = f"{kind}_{b}x{c}x{h}x{w}"
+        corr, px, py, mask_t = random_resample_inputs(b, c, h, w, gen, kind)
         corr = corr[..., :121]
         exact = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
         got = resample.resample_correlation(corr, px, py, mask_t)
@@ -316,16 +344,22 @@ def main(argv):
         want = hat_resample_reference(corr, px, py, mask_t)
         errs["hat_resample_correlation"][name] = max_err_checked(
             got, want, f"hat kernel at {name}", HAT_RTOL, HAT_ATOL)
-        hat_exact_errs[name] = float((got - exact).abs().max())
-        if not hat_exact_errs[name] <= DEFAULT_TIER_MARGIN:
-            raise SystemExit(f"hat kernel is {hat_exact_errs[name]} from the exact gather at "
-                             f"{name}, above the margin {DEFAULT_TIER_MARGIN}")
+        if kind != "outside":  # outside the map the hat form drops, the gather clamps
+            hat_exact_errs[name] = float((got - exact).abs().max())
+            if not hat_exact_errs[name] <= DEFAULT_TIER_MARGIN:
+                raise SystemExit(f"hat kernel is {hat_exact_errs[name]} from the exact gather "
+                                 f"at {name}, above the margin {DEFAULT_TIER_MARGIN}")
         del corr, px, py, mask_t, got, want, exact
     emit({"phase": "kernel",
           "resample_correlation": {"rtol": RTOL, "atol": ATOL,
-                                   "max_abs_err": errs["resample_correlation"]},
+                                   "max_abs_err": errs["resample_correlation"],
+                                   "bit_equal": all(
+                                       e == 0.0 for e in errs["resample_correlation"].values())},
           "hat_resample_correlation": {"rtol": HAT_RTOL, "atol": HAT_ATOL,
                                        "max_abs_err": errs["hat_resample_correlation"],
+                                       "bit_equal": all(
+                                           e == 0.0
+                                           for e in errs["hat_resample_correlation"].values()),
                                        "vs_exact_gather": hat_exact_errs,
                                        "exact_margin": DEFAULT_TIER_MARGIN}})
 
@@ -518,16 +552,36 @@ def main(argv):
 
     ev, class_head, main_counts, main_median = run_main(
         "main", model, TIMED_DISPATCHES, "hat_resample_correlation",
-        sum(hat_bound(BATCH, NUM_CLASSES, fm.h, fm.w, 121)[0] for fm in fms))
-    _, _, highest_counts, highest_median = run_main(
-        "main_highest", model_highest, TIMED_DISPATCHES_HIGHEST, "resample_correlation",
+        sum(hat_bound(BATCH, NUM_CLASSES, fm.h * fm.w, 121)[0] for fm in fms))
+    ev_highest, class_head_highest, highest_counts, _ = run_main(
+        "main_highest", model_highest, TIMED_DISPATCHES, "resample_correlation",
         sum(resample_bound(BATCH, NUM_CLASSES, fm.w * fm.h, 121)[0] for fm in fms))
-    del model_highest
+
+    # the two tiers in turns (default, highest, highest, default, ...), so
+    # that neither gains from running later in the process
+    tier_runs = {"default": (ev, class_head), "highest": (ev_highest, class_head_highest)}
+    tier_times = {"default": [], "highest": []}
+    for i, tier in enumerate(["default", "highest", "highest", "default"] * TIER_ROUNDS):
+        tier_ev, tier_head = tier_runs[tier]
+        t0 = time.perf_counter()
+        tier_ev.detect_images(batches[i % TIMED_DISPATCHES], tier_head, sizes, inv, norm)
+        torch.cuda.synchronize()
+        tier_times[tier].append(time.perf_counter() - t0)
+    tier_median = {k: float(np.median(v)) for k, v in tier_times.items()}
+    emit({"phase": "tiers", "order": "default, highest, highest, default, ...",
+          "dispatch_s": tier_times,
+          "img_per_s": {k: BATCH / m for k, m in tier_median.items()},
+          "img_per_s_spread": {k: [BATCH / max(v), BATCH / min(v)]
+                               for k, v in tier_times.items()},
+          "median_dispatch_ms": {k: m * 1e3 for k, m in tier_median.items()},
+          "default_at_least_highest": tier_median["default"] <= tier_median["highest"]})
+    del tier_runs, ev_highest, class_head_highest, model_highest
 
     # ---- 8. both kernels on the main path's own inputs ----
     # one more dispatch with the head's resample inputs captured at every
-    # level; both kernels are held against their plain versions there, and
-    # timed on the largest level
+    # level; both kernels are held against their plain versions and timed
+    # there, and on the largest level set beside their bounds, their plain
+    # versions and one PyTorch call each
     captured = []
     original = head_module.resample_correlation_hat
 
@@ -545,8 +599,13 @@ def main(argv):
     if len(captured) != len(PYRAMID):
         raise SystemExit(f"captured {len(captured)} resample calls, expected {len(PYRAMID)}")
     main_exact_errs = {}
+    level_ms = {"resample_correlation": {}, "hat_resample_correlation": {}}
     for corr, px, py, mask_t, hat_level in captured:
         name = f"main_path_{corr.shape[2]}x{corr.shape[3]}"
+        level_ms["resample_correlation"][name] = cuda_ms(
+            lambda: resample.resample_correlation(corr, px, py, mask_t), 10)
+        level_ms["hat_resample_correlation"][name] = cuda_ms(
+            lambda: hat_resample.resample_correlation_hat(corr, px, py, mask_t), 10)
         exact = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
         errs["resample_correlation"][name] = max_err_checked(
             resample.resample_correlation(corr, px, py, mask_t), exact,
@@ -563,7 +622,8 @@ def main(argv):
     emit({"phase": "main_path_inputs", "levels": len(captured),
           "max_abs_err": {k: {n: e for n, e in v.items() if n.startswith("main_path_")}
                           for k, v in errs.items()},
-          "hat_vs_exact_gather": main_exact_errs})
+          "hat_vs_exact_gather": main_exact_errs, "ms": level_ms,
+          "ms_per_dispatch": {k: sum(v.values()) for k, v in level_ms.items()}})
     corr, px, py, mask_t, hat_out = max(captured, key=lambda x: x[0].shape[2] * x[0].shape[3])
     del captured
     b, c, h, w, _ = corr.shape
@@ -597,52 +657,32 @@ def main(argv):
           "bound_ms": gather_bound_ms, "bound_by": gather_bound_by,
           "max_abs_err": errs["resample_correlation"][largest_name]})
 
-    # the hat kernel: the wrapper as the main path calls it (operand build +
-    # kernel), and the operand build and the kernel on their own
-    hat_ms = cuda_ms(lambda: hat_resample.resample_correlation_hat(corr, px, py, mask_t), 10)
-    operand_ms = cuda_ms(lambda: hat_resample_operand(corr, mask_t), 10)
-    m_op = hat_resample_operand(corr, mask_t)
-    out_buf = torch.empty((b, c, h, w), device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    hat_kernel_ms = cuda_ms(lambda: hat_resample.KERNEL.launch(
-        m_op.data_ptr(), px.data_ptr(), py.data_ptr(), out_buf.data_ptr(),
-        b * c, h, w, t, stream), 10)
+    # the hat kernel; yardstick: grid_sample (zeros padding, as the hat form
+    # drops what lies outside the map, align_corners) on the planes of
+    # M = bf16(corr * mask) held in fp32, then the sum over t; M laid out
+    # outside the timing
+    hat_ms = cuda_ms(lambda: hat_resample.resample_correlation_hat(corr, px, py, mask_t), 20)
     hat_plain_ms = cuda_ms(lambda: hat_resample_reference(corr, px, py, mask_t), 3)
+    planes = hat_resample_operand(corr, mask_t).float().view(b * c * t, 1, h, w)
+    grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1], -1).reshape(b * c * t, 1, a, 2)
 
-    iota_h = torch.arange(h, dtype=torch.float32, device="cuda")
-    iota_w = torch.arange(w, dtype=torch.float32, device="cuda")
+    def hat_library():
+        s = F.grid_sample(planes, grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=True)
+        return s.view(b, c, t, a).sum(2)
 
-    def hat_library(t_chunk=11):
-        # yardstick: the hat rows materialised in bf16 and multiplied by the
-        # operand with cuBLAS bf16 batched matmuls (bf16 out), t in chunks
-        m = hat_resample_operand(corr, mask_t).view(b * c, t, h, w)
-        pxv, pyv = px.view(b * c, t, a), py.view(b * c, t, a)
-        out = torch.zeros((b * c, a), device="cuda")
-        for t0 in range(0, t, t_chunk):
-            ts = slice(t0, t0 + t_chunk)
-            wy = (1.0 - (pyv[:, ts, :, None] - iota_h).abs()).clamp_(min=0.0).to(torch.bfloat16)
-            r = torch.matmul(wy, m[:, ts])  # [BC, tc, A, W]
-            wx = (1.0 - (pxv[:, ts, :, None] - iota_w).abs()).clamp_(min=0.0)
-            out += (r.float() * wx).sum((1, 3))
-        return out.view(b, c, h, w)
-
-    hat_library_err = float((hat_library() - hat_out).abs().max())
-    hat_library_ms = cuda_ms(hat_library, 3)
-    hat_bound_ms, hat_bound_by = hat_bound(b, c, h, w, t)
+    hat_library_err = float((hat_library().view(b, c, h, w) - hat_out).abs().max())
+    hat_library_ms = cuda_ms(hat_library, 5)
+    del planes, grid
+    hat_bound_ms, hat_bound_by = hat_bound(b, c, a, t)
     emit({"phase": "resample_timing", "kernel": "hat_resample_correlation", "shape": shape,
-          "ms": hat_ms, "operand_ms": operand_ms, "kernel_only_ms": hat_kernel_ms,
-          "plain_ms": hat_plain_ms, "library_ms": hat_library_ms,
-          "library": "bf16 hat rows x operand, torch.matmul (cuBLAS), chunks of 11 t",
+          "ms": hat_ms, "plain_ms": hat_plain_ms, "library_ms": hat_library_ms,
+          "library": "F.grid_sample over bf16(corr * mask) + sum over t",
           "library_max_abs_err": hat_library_err, "bound_ms": hat_bound_ms,
-          "bound_by": hat_bound_by, "dense_form_ms": dense_hat_ms(b, c, h, w, t),
-          "dense_form_flops": 2 * b * c * t * a * h * w,
+          "bound_by": hat_bound_by,
           "max_abs_err": errs["hat_resample_correlation"][largest_name],
           "vs_exact_gather": main_exact_errs[largest_name]})
-    del corr, px, py, mask_t, exact, gather_out, hat_out, m_op, out_buf
-
-    emit({"phase": "tiers", "img_per_s": {"default": BATCH / main_median,
-                                          "highest": BATCH / highest_median},
-          "median_dispatch_ms": {"default": main_median * 1e3, "highest": highest_median * 1e3}})
+    del corr, px, py, mask_t, exact, gather_out, hat_out
 
     if "--profile" in argv:
         profile_dispatch(ev, batches[0], class_head, sizes, inv, norm, main_median)
@@ -681,8 +721,8 @@ def main(argv):
 # kernel families of a dispatch's device time, by substring of the kernel
 # name, first match wins
 KERNEL_FAMILIES = (
-    ("hat resample kernel", ("hat_resample",)),
-    ("resample kernel", ("resample_correlation",)),
+    ("hat resample kernel", ("HatResample",)),
+    ("resample kernel", ("GatherResample",)),
     ("conv FFT", ("fft", "pointwise_mult_and_sum_complex")),
     ("conv implicit GEMM", ("fprop", "convolve")),
     ("GEMM", ("gemm",)),

@@ -3,9 +3,10 @@
 Each source in `os2d_torch/csrc/` is compiled by `nvcc` for Hopper
 (`sm_90a`) into its own shared library with a plain C interface, under
 `build/os2d_torch/` at the root of the checkout, and bound with `ctypes`.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing is
-built when a module is imported: the first launch (or `build_all`) builds.
+The library's file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing is built when a module is
+imported: the first launch (or `build_all`) builds.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC_DIR / source).read_bytes()
+    # the headers in csrc/ count too: an edit of the shared skeleton rebuilds
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / source, *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 

@@ -10,7 +10,8 @@ Contract (the head's t-major layout, os2d_tpu/models/head.py:294-299):
 Returns [B, C, H, W] float32.
 
 A CUDA tensor goes to the kernel, or the call raises; a CPU tensor goes to
-the plain version. There is no path from one to the other.
+the plain version. There is no path from one to the other. The kernel takes
+any B*C and any map size (its grid is 1-D over B*C and the anchor tiles).
 """
 
 from __future__ import annotations
@@ -22,13 +23,11 @@ import torch
 from .cuda import CudaKernel
 from .sampling import resample_correlation_from_pxpy_reference
 
-KERNEL = CudaKernel(
-    "resample.cu",
-    "os2d_resample_correlation",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p],
-)
-
-_MAX_GRID_Y = 65535
+# the C signature of both resample kernels (this module's and
+# ops/hat_resample.py's): corr, px, py, mask, out, bc_count, num_classes, h,
+# w, t_count, t_full, stream
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+KERNEL = CudaKernel("resample.cu", "os2d_resample_correlation", ARGTYPES)
 
 
 def check_contract(corr, px, py, mask_t):
@@ -64,22 +63,27 @@ def check_contract(corr, px, py, mask_t):
             f"strides {corr.stride()} for shape {tuple(corr.shape)}")
 
 
-def resample_correlation(corr, px, py, mask_t):
-    """Scores [B, C, H, W]: the kernel on CUDA tensors, the plain version on
-    CPU tensors (see the module docstring for the contract)."""
+def run(kernel, plain, corr, px, py, mask_t):
+    """The dispatch of both resample wrappers (their kernels share
+    ARGTYPES): check the contract, then the plain version on CPU tensors or
+    the kernel on CUDA tensors."""
     check_contract(corr, px, py, mask_t)
     if corr.device.type == "cpu":
-        return resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
+        return plain(corr, px, py, mask_t)
     if corr.device.type != "cuda":
-        raise ValueError(f"no resample for device {corr.device}")
+        raise ValueError(f"no resample kernel for device {corr.device}")
     b, c, h, w, _ = corr.shape
-    if b * c > _MAX_GRID_Y:
-        raise ValueError(f"B*C = {b * c} exceeds the kernel's grid limit {_MAX_GRID_Y}")
     out = torch.empty((b, c, h, w), dtype=torch.float32, device=corr.device)
     with torch.cuda.device(corr.device):
-        KERNEL.launch(
+        kernel.launch(
             corr.data_ptr(), px.data_ptr(), py.data_ptr(), mask_t.data_ptr(),
-            out.data_ptr(), b, c, h, w, px.shape[2], corr.stride(3),
+            out.data_ptr(), b * c, c, h, w, px.shape[2], corr.stride(3),
             torch.cuda.current_stream(corr.device).cuda_stream,
         )
     return out
+
+
+def resample_correlation(corr, px, py, mask_t):
+    """Scores [B, C, H, W]: the kernel on CUDA tensors, the plain version on
+    CPU tensors (see the module docstring for the contract)."""
+    return run(KERNEL, resample_correlation_from_pxpy_reference, corr, px, py, mask_t)

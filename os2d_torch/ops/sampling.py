@@ -4,7 +4,7 @@ resize, and the plain versions of the two correlation-map resamples.
 Counterpart of `os2d_tpu/ops/sampling.py`. The resample itself runs through
 `ops/resample.py` (fp32 gather; its CUDA kernel is held against
 `resample_correlation_from_pxpy_reference` below) or `ops/hat_resample.py`
-(bf16 hat-weight product; its CUDA kernel is held against
+(bf16 hat-weight form; its CUDA kernel is held against
 `hat_resample_reference` below).
 """
 
@@ -153,10 +153,12 @@ def resample_correlation_from_pxpy_reference(corr, px, py, mask_t):
 
 
 def hat_resample_operand(corr, mask_t):
-    """The hat resample's bf16 operand M [B, C, T, H, W], contiguous:
-    corr[..., t] * mask_t[c, t] multiplied in fp32, then rounded to bf16 (the
-    order of `os2d_tpu/ops/pallas_hat_resample.py`, which folds the mask into
-    corr before its in-kernel cast). One pass over the corr prefix."""
+    """The hat resample's bf16 values M [B, C, T, H, W], contiguous, for the
+    plain version: corr[..., t] * mask_t[c, t] multiplied in fp32, then
+    rounded to bf16 (the order of `os2d_tpu/ops/pallas_hat_resample.py`,
+    which folds the mask into corr before its in-kernel cast). The CUDA
+    kernel forms the same values as it loads corr and builds no such
+    tensor."""
     b, c, h, w, _ = corr.shape
     t = mask_t.shape[1]
     m = torch.empty((b, c, t, h, w), dtype=torch.bfloat16, device=corr.device)
@@ -177,10 +179,11 @@ def hat_resample_reference(corr, px, py, mask_t):
 
     with M = `hat_resample_operand(corr, mask_t)` (bf16), the hat rows
     wy_t[a, h] = max(0, 1 - |py - h|) rounded to bf16, wx_t[a, w] =
-    max(0, 1 - |px - w|) in fp32, and every sum in fp32, t in order. It
-    rounds at the CUDA kernel's points; the kernel's tensor cores add the
-    product's terms in another order, so the two agree to a tolerance, not
-    to the bit.
+    max(0, 1 - |px - w|) in fp32, and every sum in fp32, t in order. A hat
+    row has two non-zero weights at most, the products of bf16 values are
+    exact in fp32, and the other terms are exact zeros, so this equals the
+    banded sum that the CUDA kernel computes (two rows, then two columns,
+    each product and sum rounded on its own) to the bit.
 
     Args:
       corr: [B, C, H, W, T_full] with T_full >= T (a prefix view is taken

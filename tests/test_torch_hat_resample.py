@@ -11,6 +11,11 @@ tests/test_torch_kernels_card.py and chip_smoke.py.
 - Against the exact fp32 gather (`resample_correlation_from_pxpy_reference`)
   on tanh-range corr at a bench-like 30x40 feature map: within 4e-3, the
   `"default"` prescreen margin (two bf16 roundings of 2^-9 relative each).
+- The identity the CUDA kernel relies on: a banded formulation that reads
+  only the two rows and two columns around each sample (indices outside the
+  map dropped) and rounds each product and sum on its own equals the plain
+  version to the bit (atol 0, rtol 0), on ragged maps, a single row or
+  column, integer coordinates, the borders and up to 0.5 outside them.
 - The wrapper's contract: a prefix view with row stride 225 is taken as it
   is; a non-contiguous px or a mismatched mask is refused.
 """
@@ -24,6 +29,7 @@ import jax.numpy as jnp
 from os2d_tpu.ops.pallas_hat_resample import hat_resample_correlation_map_pallas
 from os2d_torch.ops.hat_resample import resample_correlation_hat
 from os2d_torch.ops.sampling import (
+    hat_resample_operand,
     hat_resample_reference,
     resample_correlation_from_pxpy_reference,
 )
@@ -88,6 +94,63 @@ def test_plain_within_default_margin_of_exact_gather():
     exact = resample_correlation_from_pxpy_reference(corr[..., :121], px, py, mask_t)
     err = float((hat - exact).abs().max())
     assert 0.0 < err <= EXACT_ATOL, err
+
+
+def _banded(corr, px, py, mask_t):
+    """The hat form on its non-zero weights only, as csrc/hat_resample.cu
+    computes it: r(x) = wy0*M[y0, x] + wy1*M[y0+1, x], then
+    r(x0)*wx0 + r(x0+1)*wx1, acc += that, t in order; a term whose row or
+    column lies outside the map is left out."""
+    b, c, h, w, _ = corr.shape
+    f32 = torch.float32
+    m = hat_resample_operand(corr, mask_t).to(f32).reshape(b, c, -1, h * w)  # [B, C, T, A]
+
+    def hat(p, i):
+        return torch.clamp(1.0 - (p - i.to(f32)).abs(), min=0.0)
+
+    acc = torch.zeros((b, c, h * w), dtype=f32)
+    for t in range(px.shape[2]):
+        x, y = px[:, :, t], py[:, :, t]
+        x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+        zero = torch.zeros_like(x)
+
+        def value(yi, xi, valid):
+            idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
+            return torch.where(valid, torch.gather(m[:, :, t], 2, idx), zero)
+
+        def r(xi):
+            terms = []
+            for yi in (y0, y0 + 1):
+                wy = hat(y, yi).to(torch.bfloat16).to(f32)
+                inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+                terms.append(torch.where(inside, wy * value(yi, xi, inside), zero))
+            return terms[0] + terms[1]
+
+        s = [torch.where((xi >= 0) & (xi < w), r(xi) * hat(x, xi), zero) for xi in (x0, x0 + 1)]
+        acc = acc + (s[0] + s[1])
+    return acc.reshape(b, c, h, w)
+
+
+@pytest.mark.parametrize("b,c,h,w", [(2, 3, 6, 7), (1, 2, 19, 23), (1, 2, 1, 7), (1, 2, 6, 1),
+                                     (1, 1, 1, 1)])
+def test_banded_form_equals_plain_to_the_bit(b, c, h, w):
+    rng = np.random.RandomState(3)
+    t, a = 121, h * w
+    corr = np.tanh(rng.randn(b, c, h, w, 225)).astype(np.float32)
+    # up to 0.5 outside each border, then borders and integer coordinates
+    px = rng.uniform(-0.5, w - 0.5, (b, c, t, a)).astype(np.float32)
+    py = rng.uniform(-0.5, h - 0.5, (b, c, t, a)).astype(np.float32)
+    px[:, :, :5], px[:, :, 5:10] = 0.0, w - 1.0
+    py[:, :, 10:15], py[:, :, 15:20] = 0.0, h - 1.0
+    px[:, :, 20:30] = np.floor(px[:, :, 20:30])
+    py[:, :, 25:35] = np.floor(py[:, :, 25:35])
+    px[:, :, 35:40], py[:, :, 40:45] = -0.5, h - 0.5
+    mask_t = rng.rand(c, t).astype(np.float32)
+    mask_t /= mask_t.sum(1, keepdims=True)
+    corr, px, py, mask_t = (torch.from_numpy(v) for v in (corr, px, py, mask_t))
+    want = hat_resample_reference(corr[..., :121], px, py, mask_t)
+    got = _banded(corr[..., :121], px, py, mask_t)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_contract():
