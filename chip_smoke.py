@@ -2,12 +2,15 @@
 """Smoke run of the PyTorch port (os2d_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
-    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of one dispatch
+    python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of one eval
+                                     # dispatch and one train step
 
 The model is `Os2dConfig()` at full width (ResNet50-C4, 1024 channels) with
 seeded random weights. Its resample runs at the "default" tier, the bf16 hat
 kernel (csrc/hat_resample.cu); the "highest" tier runs the fp32 gather kernel
 (csrc/resample.cu). Both share the tile skeleton csrc/resample_tile.cuh.
+Training differentiates the resample with the CUDA kernel
+csrc/resample_backward.cu (the hat form's gradient under JAX's rules).
 Phases, each printing one JSON line:
   1. env      the card (nvidia-smi name and power limit), torch/CUDA versions,
               the TF32 flags as the model sets them, and the kernel builds
@@ -54,8 +57,41 @@ Phases, each printing one JSON line:
               plain versions and one PyTorch call each that computes the
               same function (F.grid_sample and a masked sum; the port calls
               neither).
-Launch counts are set to 0 just before each of phases 3-7 and read just
-after it; a phase whose kernel was not launched fails. Then one
+  9. train_first_step  the training path's first TrainStep at the default
+              recipe (below) but with RLL's margin_pos at 1.0, on the card and
+              on the CPU from the same weights and batch: loss and gradient
+              norm within rtol 2e-3 (fp32 convolutions and their backward in
+              another order on the two devices, and the bf16 hat forward on
+              both). Random weights score every anchor above the recipe's
+              0.6, which leaves the cls gradient (the backward kernel's
+              dpx/dpy) zero; at 1.0 every positive has a loss, and the step
+              must show a positive loss and a non-zero cls cotangent. The
+              card's backward-kernel inputs are captured for phase 11.
+ 10. train    engine.train.trainval_loop at the default train recipe of
+              get_default_cfg() (batch 4, 600x600 patches, class_batch_size 15
+              padded to 16, class images of 240 px, SGD lr 1e-4, momentum 0.9,
+              weight decay 1e-4, max_grad_norm 100, RLL with remapping,
+              train_features) with Os2dConfig() at full width, on a synthetic
+              planted dataset of 16 classes written under build/: TRAIN_STEPS
+              steps and one eval with the objective as criterion. Finite losses
+              and gradient norms, parameters that moved, and one launch of the
+              hat kernel and one of the backward kernel per step.
+ 11. train_timing  TrainStep at the same recipe: median and spread of s/step
+              over timed steps after one warmup step, with both kernels
+              counted per step; then the backward kernel on phase 9's
+              captured inputs: held against its plain version (rtol 1e-5,
+              atol 1e-6 times each part's largest magnitude; no part may be
+              all zeros) and timed per launch, beside its bound, its plain
+              version and one PyTorch call that computes the same gradient
+              (aten.grid_sampler_2d_backward; the port calls none of it).
+              --profile adds a breakdown of one train step by kernel family.
+Phase 2 also holds the resample's backward kernel (csrc/resample_backward.cu)
+against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6 (and whether
+they agree to the bit), dcorr (fp32 atomic sums) at rtol 1e-5, atol 1e-6, on
+the ragged shapes, integer and border coordinates and the training shape
+(B=4, C=16, 38x38, T=121 of 225) on uniform and near-identity inputs.
+Launch counts are set to 0 just before each of phases 3-7 and 9-11 and read
+just after it; a phase whose kernel was not launched fails. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
 exits 1.
@@ -98,6 +134,29 @@ EVAL_TTA = "horflip_rotation90"
 EVAL_SCORE_THRESHOLD = 0.5
 PRESCREEN_CLASSES = 8
 PRESCREEN_W, PRESCREEN_H = 320, 256
+# the training phases: a planted dataset of TRAIN_CLASSES 240-px class
+# patches in TRAIN_IMAGES scenes of TRAIN_SIZE px, one patch in each cell of
+# a 2x2 grid (so the recipe's 600-px crops keep the patches near the 240-px
+# anchor size and the remapped targets hold positives); the recipe is
+# get_default_cfg()'s
+TRAIN_CLASSES, TRAIN_IMAGES, TRAIN_SIZE = 16, 8, 640
+TRAIN_STEPS = 4
+TRAIN_TIMED_STEPS = 6
+TRAIN_EVAL_IMAGES = 2
+TRAIN_CPU_RTOL = 2e-3
+# random weights score every anchor far above 0.6 against every class,
+# positives and negatives alike, whatever is planted; at the recipe's
+# margin_pos 0.6 no positive has a loss, and the cls gradient (the backward
+# kernel's dpx/dpy, the TransformNet's gradient through them) is zero. The
+# first step, which holds the card against the CPU and captures the
+# backward kernel's inputs, takes margin_pos 1.0: every positive has a loss
+FIRST_STEP_MARGIN_POS = 1.0
+# flops per template-point sample in the backward kernel: the hat weights
+# and derivatives of 4 rows and 4 columns (4 each: two subtracts, an abs, a
+# max), dpx (4 rows of 2 products and a sum, then 2 products and a sum each),
+# dpy (2 products, then 4 of 2 products and 2 sums), the 4 dcorr products
+# (2 each) and the two cotangent products
+BACKWARD_FLOPS_PER_SAMPLE = 90
 
 
 def emit(obj):
@@ -148,6 +207,18 @@ def hat_bound(b, c, a, t):
     """The hat kernel: the gather's bytes, its banded fp32 operations
     against the fp32 rate."""
     return bound(resample_bytes(b, c, a, t), HAT_FLOPS_PER_SAMPLE * b * c * t * a, FP32_FLOPS)
+
+
+def backward_bytes(b, c, a, t, t_full):
+    """dcorr (all t_full channels) written once, the corr prefix, px and py
+    read once, dpx and dpy written once, the two cotangents and the mask
+    read once; fp32 throughout."""
+    return 4 * (b * c * a * t_full + b * c * a * t + 4 * b * c * t * a + 2 * b * c * a + c * t)
+
+
+def backward_bound(b, c, a, t, t_full):
+    return bound(backward_bytes(b, c, a, t, t_full), BACKWARD_FLOPS_PER_SAMPLE * b * c * t * a,
+                 FP32_FLOPS)
 
 
 def max_err_checked(got, want, what, rtol=RTOL, atol=ATOL):
@@ -237,6 +308,42 @@ def write_planted_dataset(root):
     return pd.DataFrame(rows)
 
 
+def write_train_dataset(root):
+    """A planted training set: TRAIN_CLASSES class patches of 240 px (8-px
+    blocks of seeded random colors) and TRAIN_IMAGES noise scenes of
+    TRAIN_SIZE px, each holding four patches, one in each cell of a 2x2 grid,
+    every class in TRAIN_IMAGES * 4 / TRAIN_CLASSES scenes. Written as JPEG
+    files and a CSV-schema dataframe."""
+    import numpy as np
+    import pandas as pd
+    from PIL import Image
+
+    rng = np.random.RandomState(1)
+    os.makedirs(os.path.join(root, "classes", "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "src"), exist_ok=True)
+    patches = []
+    for cid in range(TRAIN_CLASSES):
+        p = rng.randint(0, 255, (PATCH // 8, PATCH // 8, 3), np.uint8)
+        patches.append(np.kron(p, np.ones((8, 8, 1), np.uint8)))
+        Image.fromarray(patches[-1]).save(
+            os.path.join(root, "classes", "images", f"class{cid}.jpg"), quality=95)
+    cell = TRAIN_SIZE // 2
+    rows = []
+    for image_id in range(TRAIN_IMAGES):
+        scene = rng.randint(0, 60, (TRAIN_SIZE, TRAIN_SIZE, 3), np.uint8)
+        for k in range(4):
+            cid = (image_id * 4 + k) % TRAIN_CLASSES
+            x0 = (k % 2) * cell + rng.randint(0, cell - PATCH + 1)
+            y0 = (k // 2) * cell + rng.randint(0, cell - PATCH + 1)
+            scene[y0:y0 + PATCH, x0:x0 + PATCH] = patches[cid]
+            rows.append(dict(imageid=image_id, imagefilename=f"img{image_id}.jpg", classid=cid,
+                             classfilename=f"class{cid}.jpg", gtbboxid=len(rows), difficult=0,
+                             lx=x0 / TRAIN_SIZE, ty=y0 / TRAIN_SIZE,
+                             rx=(x0 + PATCH) / TRAIN_SIZE, by=(y0 + PATCH) / TRAIN_SIZE))
+        Image.fromarray(scene).save(os.path.join(root, "src", f"img{image_id}.jpg"), quality=95)
+    return pd.DataFrame(rows)
+
+
 def detections_agree(got, want, box_atol=1e-2):
     """Every valid detection of `got` has one in `want` of the same image and
     class with score within 1e-4 and box within box_atol px, and the counts
@@ -273,18 +380,29 @@ def main(argv):
     from os2d_torch.engine.evaluate import Evaluator, evaluate, unpack_detections
     from os2d_torch.models import Os2dConfig, Os2dModel
     from os2d_torch.models import head as head_module
-    from os2d_torch.ops import hat_resample, resample
+    from os2d_torch.data.dataloader import build_train_dataloader_from_config
+    from os2d_torch.engine.objective import ObjectiveConfig
+    from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.engine.train import (
+        TrainStep,
+        prepare_batch_arrays,
+        trainable_parameters,
+        trainval_loop,
+    )
+    from os2d_torch.ops import hat_resample, resample, resample_grad
     from os2d_torch.ops.cuda import BUILD_DIR, build_all
     from os2d_torch.ops.sampling import (
         hat_resample_operand,
         hat_resample_reference,
+        resample_backward_reference,
         resample_correlation_from_pxpy_reference,
     )
     from os2d_torch.structures.boxes import box_iou
     from os2d_torch.structures.feature_map import FeatureMapSize, feature_map_size_for_image
 
     kernels = {"resample_correlation": resample.KERNEL,
-               "hat_resample_correlation": hat_resample.KERNEL}
+               "hat_resample_correlation": hat_resample.KERNEL,
+               "resample_correlation_backward": resample_grad.KERNEL}
 
     def reset_counts():
         for k in kernels.values():
@@ -350,6 +468,37 @@ def main(argv):
                 raise SystemExit(f"hat kernel is {hat_exact_errs[name]} from the exact gather "
                                  f"at {name}, above the margin {DEFAULT_TIER_MARGIN}")
         del corr, px, py, mask_t, got, want, exact
+    # the backward kernel: ragged shapes with uniform (some coordinates on
+    # the borders), near-identity and integer coordinates (every sample on
+    # a tie), and the training shape
+    bwd_cases = [(shape, kind) for shape in ragged
+                 for kind in ("uniform", "near_identity", "integer")]
+    bwd_cases += [((4, 16, 38, 38), kind) for kind in ("uniform", "near_identity")]
+    errs["resample_correlation_backward"] = {}
+    for (b, c, h, w), kind in bwd_cases:
+        name = f"{kind}_{b}x{c}x{h}x{w}"
+        corr, px, py, mask_t = random_resample_inputs(
+            b, c, h, w, gen, "uniform" if kind == "integer" else kind)
+        if kind == "integer":
+            px, py = px.floor().contiguous(), py.floor().contiguous()
+        g = torch.randn(b, c, h * w, generator=gen, device="cuda")
+        g_sum = g + torch.randn(b, c, h * w, generator=gen, device="cuda")
+        got = resample_grad.resample_correlation_backward(g, g_sum, corr, px, py, mask_t)
+        torch.cuda.synchronize()
+        want = resample_backward_reference(g, g_sum, corr, px, py, mask_t, px.shape[2])
+        errs["resample_correlation_backward"][name] = {
+            part: max_err_checked(x, y, f"backward kernel {part} at {name}")
+            for part, x, y in zip(("dcorr", "dpx", "dpy"), got, want)}
+        if got[0][..., px.shape[2]:].any():
+            raise SystemExit(f"backward kernel wrote dcorr channels >= T at {name}")
+        del corr, px, py, mask_t, g, g_sum, got, want
+    bwd_errs = errs["resample_correlation_backward"]
+    emit({"phase": "kernel",
+          "resample_correlation_backward": {
+              "rtol": RTOL, "atol": ATOL, "max_abs_err": bwd_errs,
+              "dpx_dpy_bit_equal": all(e["dpx"] == 0.0 and e["dpy"] == 0.0
+                                       for e in bwd_errs.values()),
+              "dcorr_bit_equal": all(e["dcorr"] == 0.0 for e in bwd_errs.values())}})
     emit({"phase": "kernel",
           "resample_correlation": {"rtol": RTOL, "atol": ATOL,
                                    "max_abs_err": errs["resample_correlation"],
@@ -583,18 +732,18 @@ def main(argv):
     # there, and on the largest level set beside their bounds, their plain
     # versions and one PyTorch call each
     captured = []
-    original = head_module.resample_correlation_hat
+    original = resample_grad.FORWARD["default"]
 
     def capture(corr, px, py, mask_t):
         out = original(corr, px, py, mask_t)
         captured.append((corr, px, py, mask_t, out))
         return out
 
-    head_module.resample_correlation_hat = capture
+    resample_grad.FORWARD["default"] = capture
     try:
         ev.detect_images(batches[0], class_head, sizes, inv, norm)
     finally:
-        head_module.resample_correlation_hat = original
+        resample_grad.FORWARD["default"] = original
     torch.cuda.synchronize()
     if len(captured) != len(PYRAMID):
         raise SystemExit(f"captured {len(captured)} resample calls, expected {len(PYRAMID)}")
@@ -684,8 +833,188 @@ def main(argv):
           "vs_exact_gather": main_exact_errs[largest_name]})
     del corr, px, py, mask_t, exact, gather_out, hat_out
 
+    # ---- 9.-11. the training path at the default recipe ----
+    train_cfg = get_default_cfg()
+    train_cfg.train.optim.max_iter = TRAIN_STEPS
+    train_cfg.eval.iter = TRAIN_STEPS  # evals with the criterion before and after the steps
+    train_cfg.eval.mAP_iou_thresholds = [0.5]
+    train_cfg.tpu.device_class_cache = "off"
+    objective = ObjectiveConfig()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        df = write_train_dataset(root)
+        train_set = DatasetOneShotDetection(
+            df, gt_path=os.path.join(root, "classes", "images"),
+            image_path=os.path.join(root, "src"), name="planted-train", image_size=TRAIN_SIZE,
+            eval_scale=TRAIN_SIZE, cache_images=True)
+        train_loader, _ = build_train_dataloader_from_config(train_cfg, train_set, seed=0)
+        eval_loader = DataloaderOneShotDetection(train_set.copy_subset(TRAIN_EVAL_IMAGES),
+                                                 batch_size=1, pyramid_scales_eval=[1.0])
+    train_batch = train_loader.get_batch(0)
+
+    # 9. the first step on the card and on the CPU from the same weights, at
+    # FIRST_STEP_MARGIN_POS (see its comment); the card's backward inputs are
+    # captured for phase 11
+    train_model = Os2dModel(Os2dConfig(), seed=1)
+    cpu_train_model = Os2dModel(Os2dConfig(), device="cpu")
+    cpu_train_model.load_state_dict({k: v.cpu() for k, v in train_model.state_dict().items()})
+    first_objective = ObjectiveConfig(margin_pos=FIRST_STEP_MARGIN_POS)
+    first, captured = {}, []
+    original_backward = resample_grad.resample_correlation_backward
+
+    def capture_backward(*args):
+        captured.append(args)
+        return original_backward(*args)
+
+    for dev, m in (("cuda", train_model), ("cpu", cpu_train_model)):
+        opt = create_optimizer(train_cfg.train.optim, trainable_parameters(m, train_cfg.train))
+        step = TrainStep(m, first_objective, opt, train_cfg.train)
+        arrays, c_pad = prepare_batch_arrays(train_batch, m.device)
+        if dev == "cuda":
+            reset_counts()
+            resample_grad.resample_correlation_backward = capture_backward
+        t0 = time.perf_counter()
+        try:
+            first[dev] = step(arrays, c_pad)
+        finally:
+            resample_grad.resample_correlation_backward = original_backward
+        first[dev + "_s"] = time.perf_counter() - t0
+        if dev == "cuda":
+            first_counts = read_counts()
+    del cpu_train_model
+    if len(captured) != 1:
+        raise SystemExit(f"captured {len(captured)} backward calls in one step, expected 1")
+    step_bwd_inputs = tuple(x.detach() for x in captured.pop())
+    first_err = {k: abs(first["cuda"][k] - first["cpu"][k]) / max(abs(first["cpu"][k]), 1e-12)
+                 for k in first["cpu"]}
+    emit({"phase": "train_first_step", "batch": list(arrays["images"].shape),
+          "classes_padded": c_pad, "margin_pos": FIRST_STEP_MARGIN_POS,
+          "cuda": first["cuda"], "cpu": first["cpu"],
+          "relative_err": first_err, "rtol": TRAIN_CPU_RTOL, "cuda_s": first["cuda_s"],
+          "cpu_s": first["cpu_s"], "launches": first_counts})
+    if not all(np.isfinite(v) for v in first["cuda"].values()):
+        raise SystemExit(f"train_first_step: non-finite metrics {first['cuda']}")
+    if not first["cuda"]["cls_RLL_pos"] > 0:
+        raise SystemExit("train_first_step: no positive scores below margin_pos, so the cls "
+                         "gradient, and with it the backward's dpx/dpy, is zero")
+    if not float(step_bwd_inputs[0].abs().max()) > 0:
+        raise SystemExit("train_first_step: the captured cls cotangent is all zeros")
+    for k in ("loss", "grad_norm"):
+        if not first_err[k] <= TRAIN_CPU_RTOL:
+            raise SystemExit(f"train_first_step: {k} {first['cuda'][k]} on the card, "
+                             f"{first['cpu'][k]} on the CPU")
+    require_launches("train_first_step", first_counts, "hat_resample_correlation", 1)
+    require_launches("train_first_step", first_counts, "resample_correlation_backward", 1)
+
+    # 10. trainval_loop: the train steps and the evals with the criterion
+    watched = ("backbone.conv1.weight", "backbone.layer3.5.conv3.weight",
+               "transform_net.linear.weight", "backbone.layer1.0.bn1.running_var")
+    before = {k: train_model.state_dict()[k].clone() for k in watched}
+    train_opt = create_optimizer(train_cfg.train.optim,
+                                 trainable_parameters(train_model, train_cfg.train))
+    reset_counts()
+    t0 = time.perf_counter()
+    full_log, _ = trainval_loop(train_loader, train_model, train_cfg, objective, train_opt,
+                                dataloaders_eval=[eval_loader])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_counts = read_counts()
+    moved = {k: float((train_model.state_dict()[k] - before[k]).abs().max()) for k in watched}
+    series = {k: v for k, v in full_log.items() if k != "time"}
+    emit({"phase": "train", "steps": TRAIN_STEPS, "eval_images": TRAIN_EVAL_IMAGES,
+          "log": series, "param_max_change": moved, "seconds": loop_s,
+          "launches": loop_counts})
+    finite_keys = ["train_loss", "train_grad_norm", f"loss_{eval_loader.get_name()}"]
+    for k in finite_keys:
+        values = [v for v in full_log.get(k, []) if not np.isnan(v)]
+        if not values or not np.isfinite(values).all():
+            raise SystemExit(f"train: the log's {k} is {full_log.get(k)}")
+    if not all(v > 0 for v in moved.values()):
+        raise SystemExit(f"train: parameters did not move: {moved}")
+    require_launches("train", loop_counts, "resample_correlation_backward", TRAIN_STEPS)
+    if loop_counts["hat_resample_correlation"] < TRAIN_STEPS:
+        raise SystemExit(f"train: the hat kernel launched {loop_counts} times")
+
+    # 11. TrainStep timing, then the backward kernel on the first step's inputs
+    step = TrainStep(train_model, objective, train_opt, train_cfg.train)
+    arrays, c_pad = prepare_batch_arrays(train_batch, "cuda")
+    t0 = time.perf_counter()
+    step(arrays, c_pad)
+    torch.cuda.synchronize()
+    train_warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    step_times, step_counts = [], []
+    for _ in range(TRAIN_TIMED_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = step(arrays, c_pad)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        step_counts.append(read_counts())
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise SystemExit(f"train_timing: non-finite metrics {metrics}")
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for counts in step_counts:
+        require_launches("train_timing", counts, "hat_resample_correlation", 1)
+        require_launches("train_timing", counts, "resample_correlation_backward", 1)
+    train_median = float(np.median(step_times))
+    emit({"phase": "train_timing", "recipe": "get_default_cfg() train: batch 4, 600x600, "
+          "15 classes padded to 16, class images 240 px, SGD", "warmup_s": train_warmup_s,
+          "step_s": step_times, "median_step_s": train_median,
+          "step_s_spread": [min(step_times), max(step_times)],
+          "launches_per_step": step_counts[0], "peak_gb": train_peak_gb})
+
+    g, g_sum, corr, px, py, mask_t = step_bwd_inputs
+    del step_bwd_inputs
+    b, c, h, w, t_full = corr.shape
+    t, a = px.shape[2], h * w
+    got = resample_grad.resample_correlation_backward(g, g_sum, corr, px, py, mask_t)
+    want = resample_backward_reference(g, g_sum, corr, px, py, mask_t, t)
+    name = f"train_first_step_{b}x{c}x{h}x{w}"
+    # the step's gradients are small: each part is held at the random cases'
+    # atol taken relative to its largest magnitude; a part that is all zeros
+    # would hold no kernel to anything
+    want_max = {part: float(y.abs().max()) for part, y in zip(("dcorr", "dpx", "dpy"), want)}
+    if not all(v > 0 for v in want_max.values()):
+        raise SystemExit(f"train_timing: the first step's backward has an all-zero part "
+                         f"{want_max} (max |g| {float(g.abs().max())})")
+    errs["resample_correlation_backward"][name] = {
+        part: max_err_checked(x, y, f"backward kernel {part} on the first step's inputs",
+                              atol=ATOL * want_max[part])
+        for part, x, y in zip(("dcorr", "dpx", "dpy"), got, want)}
+    del got, want
+    bwd_ms = cuda_ms(lambda: resample_grad.resample_correlation_backward(
+        g, g_sum, corr, px, py, mask_t), 20)
+    bwd_plain_ms = cuda_ms(lambda: resample_backward_reference(
+        g, g_sum, corr, px, py, mask_t, t), 3)
+    # yardstick: one aten.grid_sampler_2d_backward (bilinear, zeros padding as
+    # the hat form drops what lies outside, align_corners) over the corr
+    # planes for the cotangent g * mask; inputs laid out outside the timing
+    planes = corr[..., :t].permute(0, 1, 4, 2, 3).reshape(b * c * t, 1, h, w).contiguous()
+    grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1], -1).reshape(
+        b * c * t, 1, a, 2)
+    grad_out = (g[:, :, None, :] * mask_t[None, :, :, None]).reshape(b * c * t, 1, 1, a)
+
+    def grid_sample_backward():
+        return torch.ops.aten.grid_sampler_2d_backward(grad_out, planes, grid, 0, 0, True,
+                                                       [True, True])
+
+    bwd_library_ms = cuda_ms(grid_sample_backward, 5)
+    del planes, grid, grad_out
+    bwd_bound_ms, bwd_bound_by = backward_bound(b, c, a, t, t_full)
+    emit({"phase": "train_timing", "kernel": "resample_correlation_backward",
+          "shape": {"B": b, "C": c, "H": h, "W": w, "T": t, "T_full": t_full},
+          "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": bwd_library_ms,
+          "library": "aten.grid_sampler_2d_backward (grad of planes and grid)",
+          "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+          "max_abs_err": errs["resample_correlation_backward"][name],
+          "max_abs_want": want_max, "max_abs_g": float(g.abs().max()),
+          "atol_relative": ATOL, "rtol": RTOL})
+    del g, g_sum, corr, px, py, mask_t
+
     if "--profile" in argv:
-        profile_dispatch(ev, batches[0], class_head, sizes, inv, norm, main_median)
+        profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),
+                    main_median)
+        profile_run("profile_train", lambda: step(arrays, c_pad), train_median)
 
     emit({"kernels": [{
         "name": "resample_correlation",
@@ -711,6 +1040,19 @@ def main(argv):
         "bound_ms": hat_bound_ms,
         "bound_by": hat_bound_by,
         "library_ms": hat_library_ms,
+    }, {
+        "name": "resample_correlation_backward",
+        "route": "cuda",
+        "source": "os2d_torch/csrc/resample_backward.cu",
+        "replaces": "os2d_tpu/ops/sampling.py:147",
+        "launches": loop_counts["resample_correlation_backward"],
+        "max_abs_err": max(max(e.values())
+                           for e in errs["resample_correlation_backward"].values()),
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound_ms,
+        "bound_by": bwd_bound_by,
+        "library_ms": bwd_library_ms,
     }]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -721,9 +1063,11 @@ def main(argv):
 # kernel families of a dispatch's device time, by substring of the kernel
 # name, first match wins
 KERNEL_FAMILIES = (
+    ("resample backward kernel", ("resample_backward",)),
     ("hat resample kernel", ("HatResample",)),
     ("resample kernel", ("GatherResample",)),
     ("conv FFT", ("fft", "pointwise_mult_and_sum_complex")),
+    ("conv backward (dgrad, wgrad)", ("dgrad", "wgrad")),
     ("conv implicit GEMM", ("fprop", "convolve")),
     ("GEMM", ("gemm",)),
     ("layout and copies", ("Nhwc", "Nchw", "copy")),
@@ -737,10 +1081,20 @@ def kernel_family(name):
     return "elementwise and other"
 
 
-def profile_dispatch(ev, images, class_head, sizes, inv, norm, untraced_s):
-    """Device time by kernel over one main-path dispatch (torch.profiler).
-    The idle share is taken against the untraced median dispatch time, since
-    the profiler's own start-up inflates the traced wall time."""
+def is_annotation(evt):
+    """A record_function range (Optimizer.step#SGD.step) that the profiler
+    also reports on the device timeline: its time is its kernels', counted
+    under their own names. A kernel's name may hold "#" too (a lambda's
+    `{lambda()#1}`, in most of at::native's elementwise and reduce kernels),
+    so "#" alone does not mark a range."""
+    return getattr(evt, "is_user_annotation", False) or ("#" in evt.key and "(" not in evt.key)
+
+
+def profile_run(phase, fn, untraced_s):
+    """Device time by kernel over one call of fn, an eval dispatch or a train
+    step (torch.profiler). The idle share is taken against the untraced
+    median time, since the profiler's own start-up inflates the traced wall
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -748,12 +1102,12 @@ def profile_dispatch(ev, images, class_head, sizes, inv, norm, untraced_s):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ev.detect_images(images, class_head, sizes, inv, norm)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or is_annotation(evt):
             continue
         dev_us = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
         if dev_us > 0:
@@ -763,8 +1117,8 @@ def profile_dispatch(ev, images, class_head, sizes, inv, norm, untraced_s):
     families = {}
     for ms, key, _ in rows:
         families[kernel_family(key)] = families.get(kernel_family(key), 0.0) + ms
-    emit({"phase": "profile", "traced_wall_ms": wall_ms, "device_ms": device_ms,
-          "untraced_dispatch_ms": untraced_s * 1e3,
+    emit({"phase": phase, "traced_wall_ms": wall_ms, "device_ms": device_ms,
+          "untraced_ms": untraced_s * 1e3,
           "device_idle_share": (1 - device_ms / (untraced_s * 1e3)) if rows else None,
           "families_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
           "top": [{"kernel": k[:120], "ms": ms, "calls": n} for ms, k, n in rows[:25]]})

@@ -1,1 +1,2 @@
-"""Host-side data layer of the eval path (counterpart of os2d_tpu/data)."""
+"""Host-side data layer: datasets, eval and train dataloaders, transforms
+(counterpart of os2d_tpu/data)."""

@@ -1,4 +1,4 @@
-"""Dataset for one-shot detection, eval part (host side).
+"""Dataset for one-shot detection (host side).
 
 Counterpart of `DatasetOneShotDetection` in `os2d_tpu/data/dataset.py`
 (the reference's os2d/data/dataset.py:558-734): scene images and GT class
@@ -11,6 +11,7 @@ they need dataset files that are not in the repo.
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 from collections import OrderedDict
@@ -81,8 +82,26 @@ class DatasetOneShotDetection:
     def get_class_ids(self):
         return self.gtboxframe["classid"].unique()
 
+    def get_dataframe_for_image_ids(self, image_ids):
+        return self.gtboxframe[self.gtboxframe["imageid"].isin(image_ids)]
+
     def get_image_size_for_image_id(self, image_id):
         return self.image_size_per_image_id[image_id]
+
+    def copy_subset(self, subset_size=None):
+        """The first subset_size images, with their boxes (for evaluating on a
+        part of the train set; os2d_tpu/data/dataset.py:523-534)."""
+        subset = copy.copy(self)
+        if subset_size is not None:
+            subset.num_images = min(subset_size, self.num_images)
+            subset.image_ids = self.image_ids[: subset.num_images]
+            subset.image_file_names = self.image_file_names[: subset.num_images]
+            subset.gtboxframe = self.gtboxframe[self.gtboxframe["imageid"].isin(subset.image_ids)]
+            subset.name = self.name + f"-subset{subset_size}"
+            subset._annotation_cache = {}
+            subset._read_dataset_gt_images()
+            subset._read_dataset_images()
+        return subset
 
     def _read_dataset_images(self):
         self.image_path_per_image_id = OrderedDict()

@@ -10,9 +10,11 @@
 - `Evaluator.detect_images_prescreened` is the no-miss class prescreen: the
   backbone once, per-class correlation ceilings, then the head and decode on
   the surviving classes only.
-- `evaluate` runs a dataloader to VOC mAP.
-Not ported yet: the loss metrics (`criterion`), the host-pyramid and
-heatmap paths, visualisation, int8 class banks, BN folding and meshes.
+- `evaluate` runs a dataloader to VOC mAP, and with a `criterion` also to
+  the training objective's loss terms per image (the prescreen is bypassed
+  then: negatives count).
+Not ported yet: the host-pyramid and heatmap paths, visualisation, int8
+class banks, BN folding and meshes.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ from ..data.voc_eval import do_voc_evaluation
 from ..models.head import ClassHead
 from ..ops.geometry import l2_normalize_channels
 from ..ops.sampling import resize_bilinear_antialias
-from .decode import decode_pyramid
+from .decode import decode_pyramid, default_boxes_for_image_size
+from .objective import compute_objective
+from .targets import encode_targets, remap_targets
 
 
 def prescreen_margin(resample_precision: str) -> float:
@@ -127,6 +131,63 @@ def _decode_and_pack(loc_p, cls_p, sizes, scales, num_views, cfg):
         [out["boxes"], out["scores"][..., None], out["valid"][..., None].float()], dim=-1)
 
 
+def padded_gt_for_image(dataloader, image_id, class_ids, num_views: int, g_pad: int):
+    """Padded GT arrays of one image in original coordinates
+    (os2d_tpu/engine/evaluate.py:201-227): boxes [g_pad, 4], labels [g_pad]
+    (the class's view-0 row; -1 pads), difficult and valid [g_pad]."""
+    ann = dataloader.dataset.get_image_annotation_for_imageid(image_id)
+    local = dataloader.convert_label_ids_global_to_local(ann.get_field("labels"), class_ids)
+    gt_boxes = np.zeros((g_pad, 4), np.float32)
+    gt_labels = np.full((g_pad,), -1, np.int64)
+    gt_difficult = np.zeros((g_pad,), bool)
+    gt_valid = np.zeros((g_pad,), bool)
+    k = len(ann)
+    if k:
+        gt_boxes[:k] = ann.bbox_xyxy
+        # GT positives land on each class's view-0 row; the other views act
+        # as extra negative labels (reference evaluate.py:293)
+        gt_labels[:k] = local * num_views
+        gt_difficult[:k] = ann.get_field("difficult")
+        gt_valid[:k] = True
+    return gt_boxes, gt_labels, gt_difficult, gt_valid
+
+
+def eval_losses(objective_cfg, cfg, loc_p, cls_p, sizes, scales, gt):
+    """The objective's loss terms per image of a batch
+    (os2d_tpu/engine/evaluate.py:230-290): per level, GT encoded against the
+    anchors in original coordinates and remapped with the predicted locs;
+    the levels concatenated along the anchors; the objective per image.
+
+    Args: loc_p / cls_p per level [B, C_rows, 4, A_l] / [B, C_rows, A_l]
+    (views not merged); sizes / scales per level (level size, (sx, sy) back
+    to the original image); gt: boxes [B, G, 4], labels, difficult, valid.
+    Returns {loss name: [B] tensor}.
+    """
+    obj = cfg.train.objective
+    num_labels = loc_p[0].shape[1]
+    device = loc_p[0].device
+    gt = [torch.as_tensor(gt[k], device=device) for k in ("boxes", "labels", "difficult", "valid")]
+    loc_t, cls_t, cls_r = [], [], []
+    for lp, sz, (sx, sy) in zip(loc_p, sizes, scales):
+        d_boxes = default_boxes_for_image_size(sz, device=device) * torch.tensor(
+            [sx, sy, sx, sy], dtype=torch.float32, device=device)
+        lt, ct = encode_targets(*gt, d_boxes, num_labels, float(obj.positive_iou_threshold),
+                                float(obj.negative_iou_threshold))
+        cr, _, _ = remap_targets(lp, *gt, d_boxes,
+                                 float(obj.remap_classification_targets_iou_pos),
+                                 float(obj.remap_classification_targets_iou_neg))
+        loc_t.append(lt)
+        cls_t.append(ct)
+        cls_r.append(cr)
+    loc_p, loc_t = torch.cat(loc_p, dim=3), torch.cat(loc_t, dim=3)
+    cls_p, cls_t, cls_r = torch.cat(cls_p, dim=2), torch.cat(cls_t, dim=2), torch.cat(cls_r, 2)
+    per_image = [compute_objective(objective_cfg, loc_p[i:i + 1], loc_t[i:i + 1],
+                                   cls_p[i:i + 1], cls_t[i:i + 1],
+                                   cls_targets_remapped=cls_r[i:i + 1])
+                 for i in range(loc_p.shape[0])]
+    return {k: torch.stack([losses[k] for losses in per_image]) for k in per_image[0]}
+
+
 class Evaluator:
     """Multiscale one-shot detection with a model on one device.
 
@@ -187,7 +248,8 @@ class Evaluator:
 
     @torch.no_grad()
     def detect_images(self, images_u8, class_head: ClassHead, level_sizes,
-                      inverse_scales, img_normalization, num_views: int = 1):
+                      inverse_scales, img_normalization, num_views: int = 1,
+                      objective_cfg=None, gt=None):
         """uint8 image batch [B, H, W, 3] in -> top-K detections out as a
         packed [B, G, K, 6] tensor (x1, y1, x2, y2, score, valid) on the
         model's device, G = classes / num_views; unpack on the host with
@@ -198,11 +260,19 @@ class Evaluator:
           inverse_scales: per level (sx, sy) back to the input image.
           img_normalization: {"mean": 3 floats, "std": 3 floats}.
           num_views: TTA views per class (contiguous rows of class_head).
+          objective_cfg, gt: with both (gt: padded boxes [B, G, 4] in
+            original coordinates, labels as view-0 rows, difficult, valid),
+            returns (packed, {loss name: [B] tensor}) from the same scores
+            (`eval_losses`).
         """
         fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
         loc_p, cls_p = self._score_levels(fms, class_head.class_feats, class_head.pool_mask)
-        return _decode_and_pack(loc_p, cls_p, list(level_sizes),
-                                [tuple(s) for s in inverse_scales], num_views, self.cfg)
+        scales = [tuple(s) for s in inverse_scales]
+        packed = _decode_and_pack(loc_p, cls_p, list(level_sizes), scales, num_views, self.cfg)
+        if objective_cfg is None:
+            return packed
+        return packed, eval_losses(objective_cfg, self.cfg, loc_p, cls_p, list(level_sizes),
+                                   scales, gt)
 
     def prescreen_applicable(self) -> bool:
         """The no-miss class prescreen is available when the decode threshold is
@@ -292,10 +362,8 @@ class Evaluator:
         return full
 
 
-def _unported_eval_options(cfg, criterion, mesh):
+def _unported_eval_options(cfg, mesh):
     unported = []
-    if criterion is not None:
-        unported.append("criterion (the eval loss metrics)")
     if mesh is not None:
         unported.append("a mesh")
     if not bool(cfg.tpu.device_side_pyramid):
@@ -328,10 +396,13 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     cfg.eval.class_image_augmentation is set, through the class prescreen
     when cfg.eval.nms_score_threshold is finite. The host unpacks batch i
     after batch i+1 was issued. With the prescreen, results also hold
-    "prescreen_pruned": the (batch, class) pairs it skipped.
+    "prescreen_pruned": the (batch, class) pairs it skipped. With a
+    `criterion` (an ObjectiveConfig) the results also hold the mean over
+    images of each loss term of the objective, from the same scores (the
+    prescreen is bypassed then: every class row counts as a negative).
     Options of the JAX package that are not ported raise NotImplementedError.
     """
-    unported = _unported_eval_options(cfg, criterion, mesh)
+    unported = _unported_eval_options(cfg, mesh)
     if unported:
         raise NotImplementedError("not ported to os2d_torch: " + "; ".join(unported))
     logger = logging.getLogger(f"{logger_prefix}.evaluate")
@@ -345,17 +416,39 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
         class_images, cfg.eval.class_image_augmentation)
     img_norm = dataloader.img_normalization
     batch_size = max(1, int(cfg.eval.batch_size))
-    use_prescreen = evaluator.prescreen_applicable()
+    use_prescreen = criterion is None and evaluator.prescreen_applicable()
     detect = evaluator.detect_images_prescreened if use_prescreen else evaluator.detect_images
     if use_prescreen:
         logger.info("eval path: two-phase (no-miss class prescreen at score threshold "
                     f"{float(cfg.eval.nms_score_threshold)})")
 
     predictions, gts, all_image_ids = [], [], []
+    loss_sums, num_loss_images = {}, 0
+    g_pad = 8
+    if criterion is not None:
+        # one padded GT size for the whole dataset
+        for iid in dataloader.dataset.image_ids:
+            g_pad = max(g_pad, len(dataloader.dataset.get_image_annotation_for_imageid(iid)))
+        g_pad = -(-g_pad // 8) * 8
+
+    def _gt_batch(batch_ids_b):
+        rows = [padded_gt_for_image(dataloader, i, class_ids, num_views, g_pad)
+                for i in batch_ids_b]
+        rows += [(np.zeros((g_pad, 4), np.float32), np.full((g_pad,), -1, np.int64),
+                  np.zeros((g_pad,), bool), np.zeros((g_pad,), bool))] * (batch_size - len(rows))
+        return {k: np.stack([r[j] for r in rows])
+                for j, k in enumerate(("boxes", "labels", "difficult", "valid"))}
 
     def _finalize(batch_ids_b, initial_sizes_b, packed):
         """Unpacks a batch's packed detections (one device -> host copy) and
-        records every genuine image row (padded tail rows are skipped)."""
+        records every genuine image row (padded tail rows are skipped); with
+        a criterion, adds the genuine rows' losses."""
+        nonlocal num_loss_images
+        if criterion is not None:
+            packed, losses = packed
+            for k, v in losses.items():
+                loss_sums[k] = loss_sums.get(k, 0.0) + float(v[:len(batch_ids_b)].sum())
+            num_loss_images += len(batch_ids_b)
         out = unpack_detections(packed)
         for i_image, image_id in enumerate(batch_ids_b):
             valid = out["valid"][i_image]
@@ -383,8 +476,13 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
         # one size); only the genuine rows are recorded
         stacked = np.stack(base_images + [base_images[-1]] * (batch_size - len(base_images)))
         images = torch.as_tensor(stacked, device=model.device)
-        packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
-                        num_views=num_views)
+        if criterion is None:
+            packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
+                            num_views=num_views)
+        else:
+            packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
+                            num_views=num_views, objective_cfg=criterion,
+                            gt=_gt_batch(batch_ids))
         if pending is not None:
             _finalize(*pending)
         pending = (batch_ids, initial_sizes, packed)
@@ -393,6 +491,8 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
 
     results = _finish_evaluation(predictions, gts, cfg, class_ids, dataset_name, t_start,
                                  print_per_class_results, logger, image_ids=all_image_ids)
+    for k, v in loss_sums.items():
+        results[k] = v / num_loss_images
     if use_prescreen:
         results["prescreen_pruned"] = evaluator.prescreen_pruned
     return results

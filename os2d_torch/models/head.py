@@ -1,6 +1,6 @@
 """OS2D detection head: dense correlation + affine alignment + resampled
 pooling. Counterpart of `os2d_tpu/models/head.py` (the reference's
-Os2dHead / Os2dAlignment, os2d/modeling/head.py:43-435), eval mode.
+Os2dHead / Os2dAlignment, os2d/modeling/head.py:43-435), eval and train mode.
 
 Classes are a batch axis: class feature maps are precomputed once as
 [C, 15, 15, F], and `head_forward` scores any (image batch, class batch)
@@ -20,11 +20,12 @@ import torch
 from ..ops.geometry import (
     affine_grid_corners,
     affine_grid_envelope,
+    clip_jax_grad,
     invert_affine_2x3,
     l2_normalize_channels,
 )
-from ..ops.hat_resample import resample_correlation_hat
-from ..ops.resample import resample_correlation
+from ..ops.resample_grad import FORWARD as RESAMPLE_FORWARD
+from ..ops.resample_grad import resample_correlation_autograd
 from ..ops.sampling import linspace, resize_bilinear_align_corners
 from ..structures.boxes import clip_to_min_size, encode_boxes, strided_anchor_grid
 from ..structures.feature_map import (
@@ -48,11 +49,6 @@ ANCHOR_BOX, ANCHOR_STRIDE = compose_receptive_field(
 )
 
 POOL_BORDER_WIDTH = 2
-
-# the resample tiers of the JAX package that are ported: "default" runs the
-# bf16 hat-weight product (csrc/hat_resample.cu), "high" and "highest" the
-# fp32 gather (csrc/resample.cu)
-RESAMPLE_PRECISIONS = ("highest", "high", "default")
 
 
 def _interior_permutation(border: int = POOL_BORDER_WIDTH):
@@ -124,7 +120,7 @@ def head_forward(
     resample_precision: str = "default",
     corr_interior_first: bool = True,
 ):
-    """Score every (image, class, anchor) triple (eval mode).
+    """Score every (image, class, anchor) triple.
 
     Args:
       transform_net: the TransformNet module.
@@ -137,16 +133,24 @@ def head_forward(
       corr_interior_first: only the interior-first channel order (the JAX
         default) is ported.
 
+    The resample goes through `ops.resample_grad` (the tier's forward kernel;
+    the hat-form gradient kernel backward), and cls_detached is the same
+    scores with px/py detached (os2d_tpu/models/head.py:300-302). Whether a
+    graph is recorded follows torch's grad mode: eval runs under no_grad.
+    Where JAX differentiates through abs or clip, the port takes JAX's
+    derivatives at the ties (ops/geometry.py); the values are torch's.
+
     Returns dict with:
-      loc:      [B, C, 4, A]  SSD-encoded localization w.r.t. 240/16 anchors
-      cls:      [B, C, A]     recognition scores in [-1, 1]
-      corners:  [B, C, 8, A]  transformed box corners
-      fm_size:  (H, W)
+      loc:           [B, C, 4, A]  SSD-encoded localization w.r.t. 240/16 anchors
+      cls:           [B, C, A]     recognition scores in [-1, 1]
+      cls_detached:  [B, C, A]     the same, transform detached (cls at eval)
+      corners:       [B, C, 8, A]  transformed box corners (detached)
+      fm_size:       (H, W)
     with A = H * W, anchor a = h * W + w.
     """
     if resample_precision == "int8":
         raise NotImplementedError("the int8 resample tier is not ported")
-    if resample_precision not in RESAMPLE_PRECISIONS:
+    if resample_precision not in RESAMPLE_FORWARD:
         raise ValueError(f"unknown resample_precision {resample_precision!r}")
     if not corr_interior_first:
         raise NotImplementedError(
@@ -199,14 +203,11 @@ def head_forward(
     fx_b = (fb[..., 2] + fb[..., 0]) / 2.0
     fy_a = (fb[..., 3] - fb[..., 1]) / 2.0
     fy_b = (fb[..., 3] + fb[..., 1]) / 2.0
-    gx = ((lx * fx_a + fx_b) / (w - 1) * 2.0 - 1.0).clamp(-1.0, 1.0)
-    gy = ((ly * fy_a + fy_b) / (h - 1) * 2.0 - 1.0).clamp(-1.0, 1.0)
+    gx = clip_jax_grad((lx * fx_a + fx_b) / (w - 1) * 2.0 - 1.0, -1.0, 1.0)
+    gy = clip_jax_grad((ly * fy_a + fy_b) / (h - 1) * 2.0 - 1.0, -1.0, 1.0)
     px = (gx + 1.0) * 0.5 * (w - 1)
     py = (gy + 1.0) * 0.5 * (h - 1)
-    if resample_precision == "default":
-        cls = resample_correlation_hat(corr[..., :n_int], px, py, mask_t)
-    else:
-        cls = resample_correlation(corr[..., :n_int], px, py, mask_t)
+    cls, cls_detached = resample_correlation_autograd(corr, px, py, mask_t, resample_precision)
 
     # (2) localization: envelope + corners in closed form from theta w.r.t.
     # image-level anchors (box 240, stride 16)
@@ -234,7 +235,7 @@ def head_forward(
     default_boxes = clip_to_min_size(boxes_img, 1.0)
     loc = encode_boxes(class_boxes, default_boxes)  # [B, C, H, W, 4]
 
-    cl = affine_grid_corners(th4)  # [b, c, h, w, 4, 2]
+    cl = affine_grid_corners(th4.detach())  # [b, c, h, w, 4, 2]
     corners = torch.stack(
         [cl[..., 0] * ix_a[..., None] + ix_b[..., None],
          cl[..., 1] * iy_a[..., None] + iy_b[..., None]],
@@ -244,6 +245,7 @@ def head_forward(
     return {
         "loc": loc.permute(0, 1, 4, 2, 3).reshape(b, c, 4, a),
         "cls": cls.reshape(b, c, a),
+        "cls_detached": cls_detached.reshape(b, c, a),
         "corners": corners.permute(0, 1, 4, 2, 3).reshape(b, c, 8, a),
         "fm_size": (h, w),
     }

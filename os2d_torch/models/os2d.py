@@ -1,5 +1,6 @@
 """OS2D model facade: counterpart of `os2d_tpu/models/os2d.py`
-(the reference's Os2dModel, os2d/modeling/model.py:123-386), eval path.
+(the reference's Os2dModel, os2d/modeling/model.py:123-386), eval and
+training.
 
 `Os2dModel` is an nn.Module that owns its weights:
 
@@ -70,7 +71,7 @@ def init_os2d_params(model: "Os2dModel", seed: int = 0) -> None:
 
 
 class Os2dModel(nn.Module):
-    """The OS2D network for evaluation.
+    """The OS2D network.
 
     Runs on `device`, by default "cuda"; it raises if CUDA is absent rather
     than moving to the CPU. Pass device="cpu" to run the plain versions of the
@@ -78,7 +79,10 @@ class Os2dModel(nn.Module):
     convolutions and matmuls (torch.backends.cudnn.allow_tf32 and
     torch.backends.cuda.matmul.allow_tf32, process-wide). The weights are
     filled from `seed` (init_os2d_params) and can be replaced with
-    load_state_dict.
+    load_state_dict. It starts in eval form, with no autograd state;
+    `train_mode(True)` makes every parameter require a gradient (the
+    training engine, `engine/train.py`, chooses which of them the optimizer
+    updates).
     """
 
     def __init__(self, config: Os2dConfig = Os2dConfig(), device=None, seed: int = 0):
@@ -102,9 +106,22 @@ class Os2dModel(nn.Module):
         self.transform_net = TransformNet(
             4 if config.use_simplified_affine_model else 6, device)
         init_os2d_params(self, seed)
-        # eval-only slice: no autograd state is kept
-        self.requires_grad_(False)
+        self.train_mode(False)
         self.eval()
+
+    def train_mode(self, enabled: bool = True) -> "Os2dModel":
+        """Every parameter requires a gradient (enabled) or none does. The JAX
+        trainer differentiates every leaf of its params, frozen ones included
+        (they count in the gradient norm, os2d_tpu/engine/train.py:208);
+        BatchNorm stays in its frozen form either way."""
+        self.requires_grad_(enabled)
+        return self
+
+    @property
+    def label_branch(self) -> nn.Module:
+        """The class-image backbone: separate if present, else shared
+        (os2d_tpu/models/os2d.py: label_backbone_params)."""
+        return self.backbone if self.label_backbone is None else self.label_backbone
 
     def extract_features(self, images_nhwc):
         """[B, H, W, 3] normalized images -> [B, H/16, W/16, 1024]."""
@@ -114,8 +131,7 @@ class Os2dModel(nn.Module):
         """Class images (list of [h, w, 3] normalized tensors or arrays,
         possibly of different sizes) -> ClassHead with [C, 15, 15, F] features.
         Images of identical shape share one backbone call."""
-        label_backbone = (self.backbone if self.label_backbone is None
-                          else self.label_backbone)
+        label_backbone = self.label_branch
         by_shape = {}
         for i, img in enumerate(class_images):
             by_shape.setdefault(tuple(img.shape), []).append(i)
@@ -129,7 +145,8 @@ class Os2dModel(nn.Module):
         return build_class_head(feats)
 
     def apply_head(self, feature_maps, class_head: ClassHead):
-        """Feature maps + class head -> dict(loc, cls, corners, fm_size)."""
+        """Feature maps + class head -> dict(loc, cls, cls_detached, corners,
+        fm_size); differentiable when grad mode is on."""
         return head_forward(
             self.transform_net,
             feature_maps,

@@ -46,12 +46,17 @@ class Conv2d(nn.Module):
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm in inference form (running statistics), as the reference
     freezes it (os2d/modeling/model.py:159-160), computed in the `_norm` form
-    of the JAX package: x * (scale * rsqrt(var + eps)) + (bias - mean * that)."""
+    of the JAX package: x * (scale * rsqrt(var + eps)) + (bias - mean * that).
+
+    All four tensors are parameters: the JAX trainer differentiates and
+    updates every leaf of its params, BatchNorm's mean and var included
+    (os2d_tpu/engine/train.py:202-217), and the port takes the same step.
+    They keep torchvision's names, so checkpoints map one to one."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
         for name in ("weight", "bias", "running_mean", "running_var"):
-            self.register_buffer(name, torch.empty(channels, device=device))
+            self.register_parameter(name, nn.Parameter(torch.empty(channels, device=device)))
 
     def reset_parameters(self):
         self.weight.fill_(1.0)

@@ -10,6 +10,25 @@ from __future__ import annotations
 import torch
 
 
+def abs_jax_grad(x):
+    """|x| whose derivative at 0 is +1, as JAX differentiates `jnp.abs`
+    (torch.abs has derivative 0 there). The value equals |x| (a negative
+    zero stays -0.0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def clip_jax_grad(x, lo=None, hi=None):
+    """`jnp.clip(x, lo, hi)` with JAX's derivative: through torch.maximum and
+    torch.minimum with tensor bounds, which split a tie 0.5/0.5 as JAX's
+    max/min do (torch.clamp passes the whole gradient at the bound). The
+    bounds are filled on x's device: no copy from the host, no wait."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
+
+
 def l2_normalize_channels(x, eps: float = 1e-6, dim: int = -1):
     """x / (||x||_2 + eps) along `dim`.
 
@@ -26,8 +45,10 @@ def affine_grid_envelope(theta):
     corners, min = t2 - (|t0| + |t1|), max = t2 + (|t0| + |t1|) per row.
 
     Args: theta [..., 2, 3]. Returns (mins, maxs), each [..., 2] as (x, y).
+    The identity transform puts exact zeros in |t0| + |t1|, so the abs takes
+    JAX's derivative +1 at 0 (`abs_jax_grad`).
     """
-    ext = torch.abs(theta[..., 0]) + torch.abs(theta[..., 1])
+    ext = abs_jax_grad(theta[..., 0]) + abs_jax_grad(theta[..., 1])
     ctr = theta[..., 2]
     return ctr - ext, ctr + ext
 

@@ -170,6 +170,95 @@ def _hat(p, iota):
     return torch.clamp(1.0 - (p[..., None] - iota).abs(), min=0.0)
 
 
+def _hat_axis_terms(p, n: int):
+    """The four indices floor(p) - 1 .. floor(p) + 2 of one axis, each with
+    its hat weight max(0, 1 - |p - i|) and the derivative of that weight by
+    p under JAX's rules (abs' (0) = +1, a max tie split 0.5): -sign(p - i)
+    where |p - i| < 1, half of it where |p - i| == 1, 0 elsewhere. The
+    difference p - i is taken rounded in fp32, as JAX takes it. Indices
+    outside [0, n) get weight and derivative 0 (the hat form drops them) and
+    are returned clamped. Only offsets 1 and 2 can carry a non-zero weight;
+    a derivative can sit at any of the four (at ties)."""
+    base = torch.floor(p) - 1.0
+    idx, weights, derivs = [], [], []
+    for k in range(4):
+        i = base + k
+        diff = p - i
+        ad = diff.abs()
+        sign = torch.where(diff >= 0, -1.0, 1.0)
+        der = torch.where(ad < 1.0, sign, torch.where(ad == 1.0, 0.5 * sign, 0.0))
+        ii = i.long()
+        inside = (ii >= 0) & (ii < n)
+        idx.append(ii.clamp(0, n - 1))
+        weights.append(torch.where(inside, torch.clamp(1.0 - ad, min=0.0), 0.0))
+        derivs.append(torch.where(inside, der, 0.0))
+    return idx, weights, derivs
+
+
+def resample_backward_reference(g, g_sum, corr, px, py, mask_t, t_count: int):
+    """Plain PyTorch gradient of the resample + masked pool in the hat form,
+    under JAX's differentiation rules: what `jax.vjp` of
+    `os2d_tpu.ops.sampling.resample_correlation_from_pxpy` gives (the JAX
+    trainer differentiates that form at every tier), written out as a formula
+    rather than taken by torch autograd, whose tie rules differ.
+
+    With go = g * mask[c, t], gd = g_sum * mask[c, t] and the hat weights
+    hy_i(py), hx_j(px) and their derivatives dhy_i, dhx_j of `_hat_axis_terms`:
+      dpx     = sum_j dhx_j * (go * r_j),  r_j = hy_1 v[1, j] + hy_2 v[2, j]
+      dpy     = sum_i dhy_i * ((go * hx_1) v[i, 1] + (go * hx_2) v[i, 2])
+      dcorr  += hy_i * (gd * hx_j) at the (at most 2x2) cells with both
+                weights non-zero, v[i, j] = corr at row y0 - 1 + i, column
+                x0 - 1 + j, channel t,
+    each product and sum rounded on its own, the sums over i and j in index
+    order; the CUDA kernel (csrc/resample_backward.cu) computes dpx and dpy
+    in exactly this order and so agrees with this function to the bit, and
+    dcorr up to the order of its atomic sums.
+
+    Args:
+      g: [B, C, A] gradient of the scores, for dpx/dpy and dcorr.
+      g_sum: [B, C, A] gradient for dcorr: g plus that of a second output
+        whose sample coordinates are detached (the head's cls_detached).
+      corr: [B, C, H, W, T_full] full correlation tensor; channels < t_count
+        are read.
+      px, py: [B, C, T, A]; mask_t: [C, T], T = t_count.
+    Returns (dcorr [B, C, H, W, T_full] with channels >= T zero, dpx, dpy).
+    """
+    b, c, h, w, t_full = corr.shape
+    a = h * w
+    planes = corr.reshape(b, c, a, t_full)
+    dcorr = torch.zeros((b, c, a, t_full), dtype=torch.float32, device=corr.device)
+    dpx = torch.empty_like(px)
+    dpy = torch.empty_like(py)
+    for t in range(t_count):
+        plane = planes[..., t]
+        m = mask_t[None, :, t, None]
+        go = g * m
+        gd = g_sum * m
+        xi, hx, dhx = _hat_axis_terms(px[:, :, t], w)
+        yi, hy, dhy = _hat_axis_terms(py[:, :, t], h)
+
+        def v(i, j):
+            return torch.gather(plane, 2, yi[i] * w + xi[j])
+
+        sx = torch.zeros_like(go)
+        for j in range(4):
+            r = hy[1] * v(1, j) + hy[2] * v(2, j)
+            sx = sx + dhx[j] * (go * r)
+        sy = torch.zeros_like(go)
+        gx1, gx2 = go * hx[1], go * hx[2]
+        for i in range(4):
+            sy = sy + dhy[i] * (gx1 * v(i, 1) + gx2 * v(i, 2))
+        dpx[:, :, t] = sx
+        dpy[:, :, t] = sy
+        acc = torch.zeros_like(go)
+        for i in (1, 2):
+            for j in (1, 2):
+                contrib = torch.where((hy[i] != 0) & (hx[j] != 0), hy[i] * (gd * hx[j]), 0.0)
+                acc.scatter_add_(2, yi[i] * w + xi[j], contrib)
+        dcorr[..., t] = acc
+    return dcorr.reshape(b, c, h, w, t_full), dpx, dpy
+
+
 def hat_resample_reference(corr, px, py, mask_t):
     """Plain PyTorch version of the `"default"`-tier resample + masked pool
     (the hat-weight form of `os2d_tpu/ops/pallas_hat_resample.py`), on the

@@ -1,10 +1,11 @@
 """Box geometry on tensors: the part of `os2d_tpu/structures/boxes.py` that
-the eval path uses.
+the eval and training paths use.
 
 Semantics match the kernels the reference imports from torchvision
 (os2d/structures/bounding_box.py:4-5, os2d/modeling/box_coder.py:7):
-box_iou / box_area / clip_boxes_to_image (torchvision.ops.boxes) and
-encode_boxes / BoxCoder.decode_single (torchvision detection _utils).
+box_iou / box_area / clip_boxes_to_image (torchvision.ops.boxes),
+encode_boxes / BoxCoder.decode_single (torchvision detection _utils) and
+Matcher(high, low, allow_low_quality_matches=False) (`match_anchors`).
 
 Boxes are float32 [..., 4] in xyxy. Padded entries are handled with validity
 masks rather than dynamic shapes.
@@ -60,12 +61,20 @@ def mask_empty_boxes(boxes):
 
 def clip_to_min_size(boxes, min_size: float = 1.0):
     """Force every side >= min_size, keeping the top-left corner fixed
-    (os2d/structures/bounding_box.py:267-277). Eval form: the JAX version's
-    stop_gradient subtleties matter only to training."""
+    (os2d/structures/bounding_box.py:267-277), with the gradient semantics
+    of the JAX version (os2d_tpu/structures/boxes.py:73-88): in the clamped
+    branch the gradient flows through neither coordinate (x1 is detached and
+    x2 = x1 + min_size)."""
     x1, y1, x2, y2 = boxes.unbind(-1)
-    x2 = torch.where(x1 + min_size > x2, x1 + min_size, x2)
-    y2 = torch.where(y1 + min_size > y2, y1 + min_size, y2)
-    return torch.stack([x1, y1, x2, y2], dim=-1)
+    need_w = (x1 + min_size) > x2
+    need_h = (y1 + min_size) > y2
+    x1d, y1d = x1.detach(), y1.detach()
+    return torch.stack([
+        torch.where(need_w, x1d, x1),
+        torch.where(need_h, y1d, y1),
+        torch.where(need_w, x1d + min_size, x2),
+        torch.where(need_h, y1d + min_size, y2),
+    ], dim=-1)
 
 
 def encode_boxes(gt_boxes, anchors, weights=BOX_ENCODING_WEIGHTS):
@@ -111,6 +120,30 @@ def decode_boxes(rel_codes, anchors, weights=BOX_ENCODING_WEIGHTS):
     return torch.stack(
         [pcx - 0.5 * pw, pcy - 0.5 * ph, pcx + 0.5 * pw, pcy + 0.5 * ph], dim=-1
     )
+
+
+def match_anchors(ious, gt_valid, gt_difficult, high_threshold: float,
+                  low_threshold: float):
+    """torchvision Matcher + difficult handling, padded-GT aware
+    (os2d_tpu/structures/boxes.py:136-162), batched over leading dims.
+
+    Args:
+      ious: [..., G, A] IoU of (padded) GT rows vs anchors.
+      gt_valid, gt_difficult: [..., G] bool.
+    Returns:
+      index [..., A] int64: >= 0 the matched GT row; -1 below low (negative);
+        -2 between the thresholds or matched to a difficult GT (ignore);
+      max_iou [..., A]: IoU with the best valid GT, clipped at 0.
+    """
+    masked = torch.where(gt_valid[..., :, None], ious, -1.0)
+    matched_vals = masked.amax(dim=-2)
+    matches = masked.argmax(dim=-2)  # the first maximum, as jnp.argmax
+    below = matched_vals < low_threshold
+    between = (matched_vals >= low_threshold) & (matched_vals < high_threshold)
+    index = torch.where(below, -1, torch.where(between, -2, matches))
+    matched_difficult = torch.gather(gt_difficult, -1, matches)
+    index = torch.where((index >= 0) & matched_difficult, -2, index)
+    return index, matched_vals.clamp(min=0.0)
 
 
 def strided_anchor_grid(fm_w: int, fm_h: int, box_w: float, box_h: float,

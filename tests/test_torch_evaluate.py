@@ -178,7 +178,5 @@ def test_evaluate_rejects_unported_options(loaders):
         cfg.merge_from_list([key, str(value)])
         with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
             teval.evaluate(loader, model, cfg)
-    with pytest.raises(NotImplementedError, match="criterion"):
-        teval.evaluate(loader, model, get_default_cfg(), criterion=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         teval.evaluate(loader, model, get_default_cfg(), mesh=object())

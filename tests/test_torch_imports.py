@@ -1,8 +1,9 @@
 """Import and fallback hygiene of the PyTorch port.
 
 - No file of os2d_torch, nor chip_smoke.py, imports jax, jaxlib or os2d_tpu.
-- The kernel wrappers (the fp32 gather and the bf16 hat resample) have no
-  `except` that could turn a failed kernel into a silent CPU fallback.
+- The kernel wrappers (the fp32 gather, the bf16 hat resample and the
+  resample's backward) have no `except` that could turn a failed kernel into
+  a silent CPU fallback.
 - Os2dModel targets CUDA unless told otherwise, and raises without it.
 """
 
@@ -43,6 +44,10 @@ def test_resample_wrapper_has_no_except():
 
 def test_hat_resample_wrapper_has_no_except():
     assert not _except_handlers("hat_resample.py")
+
+
+def test_resample_backward_wrapper_has_no_except():
+    assert not _except_handlers("resample_grad.py")
 
 
 def test_port_modules_import():

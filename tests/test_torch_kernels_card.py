@@ -15,6 +15,13 @@ columns of each sample with the plain version's roundings, so the two agree
 to the bit as well; it is held to rtol 1e-5, atol 1e-5, and to within 4e-3
 (the `"default"` prescreen margin) of the exact gather.
 
+Backward kernel (`csrc/resample_backward.cu`): computes dpx and dpy with the
+plain version's roundings in its order, so those agree to the bit (asserted
+beside rtol 1e-5, atol 1e-6); dcorr is a scatter of fp32 atomic adds, whose
+order changes the last bits, so it is held to rtol 1e-5, atol 1e-6. Cases:
+the ragged shapes, the training shape (B=4, C=16, 38x38, T=121 of 225) on
+uniform and near-identity inputs, integer coordinates and the borders.
+
 Two kinds of inputs bracket the kernels' memory traffic: "uniform" px/py
 spread over the whole map (almost no corr sector is used twice), and
 "near_identity" px/py, the anchor's position plus the template offset of
@@ -26,9 +33,10 @@ past the borders.
 import pytest
 import torch
 
-from os2d_torch.ops import hat_resample, resample
+from os2d_torch.ops import hat_resample, resample, resample_grad
 from os2d_torch.ops.sampling import (
     hat_resample_reference,
+    resample_backward_reference,
     resample_correlation_from_pxpy_reference,
 )
 
@@ -133,3 +141,47 @@ def test_kernels_take_more_than_65535_planes(cuda_gen):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, hat_resample_reference(corr, px, py, mask_t),
                                rtol=HAT_RTOL, atol=HAT_ATOL)
+
+
+BACKWARD_CASES = ([(shape, kind) for shape in RAGGED for kind in KINDS + ["outside"]]
+                  + [((4, 16, 38, 38), kind) for kind in KINDS])
+
+
+@pytest.mark.parametrize("shape,kind", BACKWARD_CASES)
+def test_backward_kernel_matches_plain(shape, kind, cuda_gen):
+    corr, px, py, mask_t = _inputs(*shape, cuda_gen, kind)
+    if kind == "outside":  # the head clips px/py to the map; integers instead
+        px, py = px.clamp(0, shape[3] - 1).floor(), py.clamp(0, shape[2] - 1).floor()
+    b, c, h, w = shape
+    g = torch.randn(b, c, h * w, generator=cuda_gen, device="cuda")
+    g_sum = g + torch.randn(b, c, h * w, generator=cuda_gen, device="cuda")
+    before = resample_grad.KERNEL.launches
+    got = resample_grad.resample_correlation_backward(g, g_sum, corr, px, py, mask_t)
+    torch.cuda.synchronize()
+    assert resample_grad.KERNEL.launches == before + 1
+    want = resample_backward_reference(g, g_sum, corr, px, py, mask_t, px.shape[2])
+    for name, x, y in zip(("dcorr", "dpx", "dpy"), got, want):
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL, msg=lambda m: f"{name}: {m}")
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert not got[0][..., px.shape[2]:].any()
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_train_function_launches_the_backward_kernel(precision, cuda_gen):
+    """The autograd Function on the card: one forward launch of the tier's
+    kernel for cls and cls_detached, one backward launch for both."""
+    corr, px, py, mask_t = _inputs(2, 3, 6, 7, cuda_gen, "near_identity")
+    corr, px, py = (x.requires_grad_(True) for x in (corr, px, py))
+    forward = hat_resample.KERNEL if precision == "default" else resample.KERNEL
+    before = (forward.launches, resample_grad.KERNEL.launches)
+    cls, cls_det = resample_grad.resample_correlation_autograd(corr, px, py, mask_t, precision)
+    g = torch.randn(cls.shape, generator=cuda_gen, device="cuda")
+    g_det = torch.randn(cls.shape, generator=cuda_gen, device="cuda")
+    ((cls * g).sum() + (cls_det * g_det).sum()).backward()
+    torch.cuda.synchronize()
+    assert (forward.launches, resample_grad.KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    flat = (g.reshape(2, 3, -1), (g + g_det).reshape(2, 3, -1))
+    want = resample_backward_reference(*flat, corr.detach(), px.detach(), py.detach(), mask_t,
+                                       px.shape[2])
+    for got, w in zip((corr.grad, px.grad, py.grad), want):
+        torch.testing.assert_close(got, w, rtol=RTOL, atol=ATOL)
