@@ -85,11 +85,14 @@ Phases, each printing one JSON line:
               version and one PyTorch call that computes the same gradient
               (aten.grid_sampler_2d_backward; the port calls none of it).
               --profile adds a breakdown of one train step by kernel family.
-Phase 2 also holds the resample's backward kernel (csrc/resample_backward.cu)
-against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6 (and whether
-they agree to the bit), dcorr (fp32 atomic sums) at rtol 1e-5, atol 1e-6, on
-the ragged shapes, integer and border coordinates and the training shape
-(B=4, C=16, 38x38, T=121 of 225) on uniform and near-identity inputs.
+Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
+entry point that enqueues a memset, a scatter kernel and a transpose
+kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
+(and whether they agree to the bit), dcorr (fp32 atomic sums) at rtol
+1e-5, atol 1e-6 with channels >= T exactly zero, on the ragged shapes,
+integer and border coordinates, collapsed planes (every sample of a plane
+on one point) and the training shape (B=4, C=16, 38x38, T=121 of 225) on
+uniform, near-identity, exact-identity and collapsed inputs.
 Launch counts are set to 0 just before each of phases 3-7 and 9-11 and read
 just after it; a phase whose kernel was not launched fails. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
@@ -234,7 +237,9 @@ def random_resample_inputs(b, c, h, w, gen, kind, t_side=11):
     borders; "outside": the same reaching 0.5 past each border;
     "near_identity": the anchor plus the template offset of the head's
     identity transform (15-px anchor boxes, t = tx*11 + ty), jittered by up
-    to 0.25 px, as the main path with random weights gives them."""
+    to 0.25 px; "identity": the same without jitter, as the main path with
+    random weights gives them; "collapsed": every sample of a (b, c) plane
+    on one point."""
     import torch
 
     dev = "cuda"
@@ -249,6 +254,9 @@ def random_resample_inputs(b, c, h, w, gen, kind, t_side=11):
         px[:, :, 7:14] = w - 1
         py[:, :, 3:10] = 0.0
         py[:, :, 10:17] = h - 1
+    elif kind == "collapsed":
+        px = (torch.rand(b, c, 1, 1, generator=gen, device=dev) * (w - 1)).expand(shape)
+        py = (torch.rand(b, c, 1, 1, generator=gen, device=dev) * (h - 1)).expand(shape)
     else:
         ti = torch.arange(t, device=dev)
         off_x = ((ti // t_side) - t_side // 2).float() * (15 / 14) + 0.5
@@ -257,6 +265,8 @@ def random_resample_inputs(b, c, h, w, gen, kind, t_side=11):
                                 indexing="ij")
 
         def jitter():
+            if kind == "identity":
+                return torch.zeros(shape, device=dev)
             return (torch.rand(shape, generator=gen, device=dev) - 0.5) * 0.5
 
         px = (xs.reshape(-1).float() + off_x[:, None] + jitter()).clamp(0, w - 1)
@@ -468,12 +478,13 @@ def main(argv):
                 raise SystemExit(f"hat kernel is {hat_exact_errs[name]} from the exact gather "
                                  f"at {name}, above the margin {DEFAULT_TIER_MARGIN}")
         del corr, px, py, mask_t, got, want, exact
-    # the backward kernel: ragged shapes with uniform (some coordinates on
-    # the borders), near-identity and integer coordinates (every sample on
-    # a tie), and the training shape
+    # the backward: ragged shapes with uniform (some coordinates on the
+    # borders), near-identity, integer (every sample on a tie) and collapsed
+    # coordinates (a plane's adds on four cells), and the training shape
+    bwd_kinds = ("uniform", "near_identity", "identity", "collapsed")
     bwd_cases = [(shape, kind) for shape in ragged
-                 for kind in ("uniform", "near_identity", "integer")]
-    bwd_cases += [((4, 16, 38, 38), kind) for kind in ("uniform", "near_identity")]
+                 for kind in ("uniform", "near_identity", "integer", "collapsed")]
+    bwd_cases += [((4, 16, 38, 38), kind) for kind in bwd_kinds]
     errs["resample_correlation_backward"] = {}
     for (b, c, h, w), kind in bwd_cases:
         name = f"{kind}_{b}x{c}x{h}x{w}"

@@ -5,7 +5,7 @@ one way to the resample, in eval (under no_grad, where it records nothing)
 and in training. Its forward is
 the tier's forward (the bf16 hat kernel `ops/hat_resample.py` at
 "default", the fp32 gather `ops/resample.py` at "high"/"highest"; their
-plain versions on CPU tensors), its backward the CUDA kernel
+plain versions on CPU tensors), its backward the CUDA kernels of
 `csrc/resample_backward.cu` on the card and its plain version
 `ops/sampling.resample_backward_reference` on the CPU. The backward is the
 gradient of the hat form under JAX's rules, fp32, at every tier: the JAX
@@ -14,8 +14,10 @@ trainer differentiates that form whatever the forward's precision.
 It returns the scores twice, as cls and cls_detached (the JAX head's second
 resample with px/py detached, os2d_tpu/models/head.py:300-302; the values are
 equal): one forward launch. The gradient of cls reaches corr, px and py; that
-of cls_detached reaches corr only. The backward is one kernel launch per
-step.
+of cls_detached reaches corr only. The backward is one launch per step of
+the C entry point, which enqueues a memset and two kernels: a scatter that
+computes dpx, dpy and dcorr's channels < T into a [B*C, T, H*W] scratch,
+and a transpose that writes dcorr whole from it.
 
 Backward contract (the kernel's):
   g, g_sum  [B, C, A] float32 contiguous (the gradient of cls; that of cls
@@ -38,9 +40,9 @@ from .hat_resample import resample_correlation_hat
 from .resample import check_contract, resample_correlation
 from .sampling import resample_backward_reference
 
-# g, g_sum, corr, px, py, mask, dcorr, dpx, dpy, bc_count, num_classes, h, w,
-# t_count, t_full, stream
-ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+# g, g_sum, corr, px, py, mask, scratch, dcorr, dpx, dpy, bc_count, num_classes,
+# h, w, t_count, t_full, stream
+ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p]
 KERNEL = CudaKernel("resample_backward.cu", "os2d_resample_correlation_backward", ARGTYPES)
 
 # the resample tiers of the JAX package that are ported, by their forward:
@@ -69,13 +71,16 @@ def resample_correlation_backward(g, g_sum, corr, px, py, mask_t):
         return resample_backward_reference(g, g_sum, corr, px, py, mask_t, t)
     if corr.device.type != "cuda":
         raise ValueError(f"no resample backward kernel for device {corr.device}")
-    dcorr = torch.zeros_like(corr)
+    # the scatter's sums in the library's layout; the entry point clears it
+    scratch = torch.empty((b * c, t, h * w), dtype=torch.float32, device=corr.device)
+    dcorr = torch.empty_like(corr)
     dpx = torch.empty_like(px)
     dpy = torch.empty_like(py)
     with torch.cuda.device(corr.device):
         KERNEL.launch(
             g.data_ptr(), g_sum.data_ptr(), corr.data_ptr(), px.data_ptr(), py.data_ptr(),
-            mask_t.data_ptr(), dcorr.data_ptr(), dpx.data_ptr(), dpy.data_ptr(),
+            mask_t.data_ptr(), scratch.data_ptr(), dcorr.data_ptr(), dpx.data_ptr(),
+            dpy.data_ptr(),
             b * c, c, h, w, t, t_full, torch.cuda.current_stream(corr.device).cuda_stream,
         )
     return dcorr, dpx, dpy

@@ -15,19 +15,25 @@ columns of each sample with the plain version's roundings, so the two agree
 to the bit as well; it is held to rtol 1e-5, atol 1e-5, and to within 4e-3
 (the `"default"` prescreen margin) of the exact gather.
 
-Backward kernel (`csrc/resample_backward.cu`): computes dpx and dpy with the
+Backward (`csrc/resample_backward.cu`: a memset, a scatter kernel and a
+transpose kernel behind one entry point): computes dpx and dpy with the
 plain version's roundings in its order, so those agree to the bit (asserted
 beside rtol 1e-5, atol 1e-6); dcorr is a scatter of fp32 atomic adds, whose
-order changes the last bits, so it is held to rtol 1e-5, atol 1e-6. Cases:
-the ragged shapes, the training shape (B=4, C=16, 38x38, T=121 of 225) on
-uniform and near-identity inputs, integer coordinates and the borders.
+order changes the last bits, so it is held to rtol 1e-5, atol 1e-6, with
+its channels >= T exactly zero. Cases: the ragged shapes, the training
+shape (B=4, C=16, 38x38, T=121 of 225) on uniform, near-identity, exact
+identity and collapsed inputs, integer coordinates and the borders,
+t_full 128 and t_full == T, B*C above 65535, and two calls in a row.
 
 Two kinds of inputs bracket the kernels' memory traffic: "uniform" px/py
 spread over the whole map (almost no corr sector is used twice), and
 "near_identity" px/py, the anchor's position plus the template offset of
 the head's identity transform plus a small jitter (the 8 anchors of one
 tile column share each sector, as on the main path); "outside" reaches 0.5
-past the borders.
+past the borders. The backward also takes "identity", the same without
+jitter (a train step's first inputs), and "collapsed", every sample of a
+(b, c) plane on one point (non-integer where the map is wider than one
+cell): all of a plane's adds land on four cells.
 """
 
 import pytest
@@ -67,6 +73,9 @@ def _inputs(b, c, h, w, gen, kind, t_full=225, t_side=11):
         py = torch.rand(shape, generator=gen, device="cuda") * (h - 1 + 2 * pad) - pad
         px[:, :, :5], py[:, :, 5:10] = 0.0, h - 1.0  # exactly on the borders
         py[:, :, 20:25] = torch.floor(py[:, :, 20:25])  # integer rows
+    elif kind == "collapsed":
+        px = (torch.rand(b, c, 1, 1, generator=gen, device="cuda") * (w - 1)).expand(shape)
+        py = (torch.rand(b, c, 1, 1, generator=gen, device="cuda") * (h - 1)).expand(shape)
     else:
         # px = x + 0.5 + (tx - 5) * 15/14 for the identity transform
         # (models/head.py: 15-px anchor boxes, template lattice t = tx*11 + ty)
@@ -77,6 +86,8 @@ def _inputs(b, c, h, w, gen, kind, t_full=225, t_side=11):
                                 indexing="ij")
 
         def jitter():
+            if kind == "identity":
+                return torch.zeros(shape, device="cuda")
             return (torch.rand(shape, generator=gen, device="cuda") - 0.5) * 0.5
 
         px = (xs.reshape(-1).float() + off_x[:, None] + jitter()).clamp(0, w - 1)
@@ -143,27 +154,59 @@ def test_kernels_take_more_than_65535_planes(cuda_gen):
                                rtol=HAT_RTOL, atol=HAT_ATOL)
 
 
-BACKWARD_CASES = ([(shape, kind) for shape in RAGGED for kind in KINDS + ["outside"]]
-                  + [((4, 16, 38, 38), kind) for kind in KINDS])
+BACKWARD_KINDS = KINDS + ["identity", "collapsed"]
+BACKWARD_CASES = ([(shape, kind) for shape in RAGGED for kind in BACKWARD_KINDS + ["outside"]]
+                  + [((4, 16, 38, 38), kind) for kind in BACKWARD_KINDS])
+
+
+def _backward_inputs(shape, gen, kind, t_full=225):
+    corr, px, py, mask_t = _inputs(*shape, gen, kind, t_full=t_full)
+    if kind == "outside":  # the head clips px/py to the map; integers instead
+        px, py = px.clamp(0, shape[3] - 1).floor(), py.clamp(0, shape[2] - 1).floor()
+    b, c, h, w = shape
+    g = torch.randn(b, c, h * w, generator=gen, device="cuda")
+    g_sum = g + torch.randn(b, c, h * w, generator=gen, device="cuda")
+    return g, g_sum, corr, px.contiguous(), py.contiguous(), mask_t
+
+
+def _backward_checked(inputs):
+    """One wrapper call, held against the plain version: dpx/dpy to the bit,
+    dcorr at the tolerance with channels >= T exactly zero, one launch."""
+    before = resample_grad.KERNEL.launches
+    got = resample_grad.resample_correlation_backward(*inputs)
+    torch.cuda.synchronize()
+    assert resample_grad.KERNEL.launches == before + 1
+    t = inputs[3].shape[2]
+    want = resample_backward_reference(*inputs, t)
+    for name, x, y in zip(("dcorr", "dpx", "dpy"), got, want):
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL, msg=lambda m: f"{name}: {m}")
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert not got[0][..., t:].any()
+    return got
 
 
 @pytest.mark.parametrize("shape,kind", BACKWARD_CASES)
 def test_backward_kernel_matches_plain(shape, kind, cuda_gen):
-    corr, px, py, mask_t = _inputs(*shape, cuda_gen, kind)
-    if kind == "outside":  # the head clips px/py to the map; integers instead
-        px, py = px.clamp(0, shape[3] - 1).floor(), py.clamp(0, shape[2] - 1).floor()
-    b, c, h, w = shape
-    g = torch.randn(b, c, h * w, generator=cuda_gen, device="cuda")
-    g_sum = g + torch.randn(b, c, h * w, generator=cuda_gen, device="cuda")
-    before = resample_grad.KERNEL.launches
-    got = resample_grad.resample_correlation_backward(g, g_sum, corr, px, py, mask_t)
-    torch.cuda.synchronize()
-    assert resample_grad.KERNEL.launches == before + 1
-    want = resample_backward_reference(g, g_sum, corr, px, py, mask_t, px.shape[2])
-    for name, x, y in zip(("dcorr", "dpx", "dpy"), got, want):
-        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL, msg=lambda m: f"{name}: {m}")
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-    assert not got[0][..., px.shape[2]:].any()
+    _backward_checked(_backward_inputs(shape, cuda_gen, kind))
+
+
+@pytest.mark.parametrize("t_full", [128, 121])  # 121: T == t_full, no zero channel
+def test_backward_kernel_channel_counts(t_full, cuda_gen):
+    _backward_checked(_backward_inputs((2, 3, 19, 23), cuda_gen, "near_identity", t_full))
+
+
+def test_backward_kernel_takes_more_than_65535_planes(cuda_gen):
+    _backward_checked(_backward_inputs((2, 32800, 3, 2), cuda_gen, "uniform", t_full=128))
+
+
+def test_backward_kernel_clears_its_scratch(cuda_gen):
+    """Two calls in a row on the same inputs: the second must not see the
+    first's sums."""
+    inputs = _backward_inputs((4, 16, 38, 38), cuda_gen, "near_identity")
+    first = _backward_checked(inputs)
+    second = _backward_checked(inputs)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    torch.testing.assert_close(first[0], second[0], rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("precision", ["default", "highest"])

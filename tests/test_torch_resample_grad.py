@@ -9,8 +9,9 @@ tests/test_torch_kernels_card.py and chip_smoke.py.
   differentiates at every tier, with the gradient taken through the prefix
   corr[..., :121] of a 225-channel tensor: dcorr, dpx and dpy at rtol 1e-5,
   atol 1e-6 on ragged maps, a single row (H=1) and column (W=1), uniform,
-  near-identity and integer coordinates and coordinates on the borders (0
-  and W-1 / H-1).
+  near-identity and integer coordinates, coordinates on the borders (0
+  and W-1 / H-1), and collapsed planes (every sample of a (b, c) plane on
+  one point, so that all of its dcorr sums land on four cells).
 - The rule that makes this necessary: torch autograd of the plain hat
   expression (torch.abs' (0) = 0) gives another dpx at integer coordinates.
 - The autograd Function `resample_correlation_autograd`: its cls takes the
@@ -49,7 +50,8 @@ def make_inputs(b, c, h, w, kind, seed):
     kind: "uniform" spread over the map; "near_identity" the anchor plus the
     identity transform's template offset, jittered by 0.25 px and clipped to
     the map (many samples on the border); "integer" whole-number coordinates;
-    "border" every coordinate at 0 or at W-1 / H-1."""
+    "border" every coordinate at 0 or at W-1 / H-1; "collapsed" every
+  sample of a (b, c) plane on one non-integer point."""
     rng = np.random.RandomState(seed)
     t = T_SIDE * T_SIDE
     shape = (b, c, t, h * w)
@@ -70,6 +72,9 @@ def make_inputs(b, c, h, w, kind, seed):
     elif kind == "border":
         px = rng.randint(0, 2, shape) * (w - 1)
         py = rng.randint(0, 2, shape) * (h - 1)
+    elif kind == "collapsed":
+        px = np.broadcast_to(rng.rand(b, c, 1, 1) * (w - 1), shape)
+        py = np.broadcast_to(rng.rand(b, c, 1, 1) * (h - 1), shape)
     else:
         raise ValueError(kind)
     mask = rng.rand(c, t).astype(np.float32) / t
@@ -91,7 +96,8 @@ def jax_vjp(corr, px, py, mask, g):
 
 CASES = [((2, 3, 6, 7), kind) for kind in ("uniform", "near_identity", "integer", "border")]
 CASES += [((1, 2, 1, 7), "uniform"), ((1, 2, 6, 1), "uniform"), ((1, 2, 1, 7), "integer"),
-          ((1, 2, 6, 1), "border"), ((1, 2, 9, 11), "near_identity")]
+          ((1, 2, 6, 1), "border"), ((1, 2, 9, 11), "near_identity"),
+          ((2, 3, 6, 7), "collapsed"), ((1, 2, 9, 11), "collapsed")]
 
 
 @pytest.mark.parametrize("shape,kind", CASES, ids=[f"{k}_{'x'.join(map(str, s))}"
