@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of one eval
-                                     # dispatch and one train step
+                                     # dispatch (fp32, fp32+fold, bf16+fold)
+                                     # and one train step
 
 The model is `Os2dConfig()` at full width (ResNet50-C4, 1024 channels) with
 seeded random weights. Its resample runs at the "default" tier, the bf16 hat
@@ -85,6 +86,29 @@ Phases, each printing one JSON line:
               version and one PyTorch call that computes the same gradient
               (aten.grid_sampler_2d_backward; the port calls none of it).
               --profile adds a breakdown of one train step by kernel family.
+ 12. nms_blocked  NMS above dense_limit (the block-sequential path), card
+              against CPU on the same candidates, exact keep masks: the
+              cross-class NMS over 33 rows x 256 = 8448 boxes (one 320x320
+              level, pre_top_k 1024) and a per-row NMS over all 39,580
+              anchors of a bench image (B=1, G=2), with its ms and fixpoint
+              sweeps (one host wait each).
+ 13. numeric_modes  at full width: fp32 with BN folded against unfolded on
+              the planted scenes (same detections, scores 1e-4); bf16, folded
+              and unfolded, the card against the CPU on the CPU's own inputs
+              by the bf16 rule (RMS(card - cpu_bf16) <= 0.25 RMS(cpu_bf16 -
+              cpu_fp32) for every backbone convolution, 0.6 for the stem,
+              each bottleneck and the head, see BF16_STAGE_RULE), with the
+              dtypes of the features, class bank and scores; evaluate() with
+              cfg.tpu.fold_bn, mAP@0.50 card = CPU.
+ 14. numeric_timing  the bench protocol with fp32, fp32+fold, bf16 and
+              bf16+fold in turns in one process: median dispatch ms, spread
+              and img/s of each, the hat kernel 7 times per dispatch in every
+              mode. --profile adds device time by family for fp32+fold and
+              bf16+fold.
+ 15. train_first_step_bf16  phase 9's first step with compute_dtype
+              bfloat16, card against CPU: loss and gradient norm within 3x
+              |CPU bf16 - CPU fp32| or phase 9's rtol, whichever is larger;
+              one launch of each kernel.
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
 entry point that enqueues a memset, a scatter kernel and a transpose
 kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
@@ -93,8 +117,9 @@ kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
 integer and border coordinates, collapsed planes (every sample of a plane
 on one point) and the training shape (B=4, C=16, 38x38, T=121 of 225) on
 uniform, near-identity, exact-identity and collapsed inputs.
-Launch counts are set to 0 just before each of phases 3-7 and 9-11 and read
-just after it; a phase whose kernel was not launched fails. Then one
+Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-15
+(each dispatch of phase 14) and read just after it; a phase whose kernel was
+not launched fails. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
 exits 1.
@@ -160,6 +185,30 @@ FIRST_STEP_MARGIN_POS = 1.0
 # dpy (2 products, then 4 of 2 products and 2 sums), the 4 dcorr products
 # (2 each) and the two cotangent products
 BACKWARD_FLOPS_PER_SAMPLE = 90
+# the numeric modes of phases 13-14: (name, compute_dtype, BN folded)
+NUMERIC_MODES = (("fp32", "float32", False), ("fp32_fold", "float32", True),
+                 ("bf16", "bfloat16", False), ("bf16_fold", "bfloat16", True))
+NUMERIC_ROUNDS = 2  # rounds of the four modes there and back in phase numeric_timing
+# the bf16 rule: RMS(card_bf16 - cpu_bf16) <= BF16_RULE * RMS(cpu_bf16 -
+# cpu_fp32) on the same inputs (tests/test_torch_numeric_modes.py), held
+# here for every backbone convolution on the CPU's own input
+BF16_RULE = 0.25
+# and for the stages made of several bf16 convolutions (the stem, each
+# bottleneck, the head through its TransformNet's three convolutions):
+# cuDNN sums each convolution's fp32 products in another order than the
+# CPU, a few roundings flip, and the flips spread through the convolutions
+# that follow. Measured on the card against the CPU on the CPU's inputs:
+# up to 0.28 for a bottleneck and 0.38 for the head here, 0.36 and 0.47 in
+# tests/test_torch_kernels_card.py; the port's CPU stages sit within 0.25
+# of JAX's (tests/test_torch_numeric_modes.py)
+BF16_STAGE_RULE = 0.6
+# a whole train step's scalars carry decorrelated bf16 rounding noise (the
+# same test module measured 0.38-1.97 of |bf16 - fp32| between the packages)
+BF16_STEP_RULE = 3.0
+# phase nms_blocked: the cross-class decode of ROADMAP's fault (one 320x320
+# level, 33 class rows, pre_top_k 1024, top_k 256) and a per-row NMS over
+# every anchor of a bench image (B=1, G=2, K=39,580)
+NMS_G, NMS_ROW_G = 33, 2
 
 
 def emit(obj):
@@ -222,6 +271,17 @@ def backward_bytes(b, c, a, t, t_full):
 def backward_bound(b, c, a, t, t_full):
     return bound(backward_bytes(b, c, a, t, t_full), BACKWARD_FLOPS_PER_SAMPLE * b * c * t * a,
                  FP32_FLOPS)
+
+
+def bf16_ratio(got, want16, want32):
+    """RMS(got - want16) / RMS(want16 - want32), the bf16 rule's ratio; where
+    bf16 and fp32 agree exactly (an output that no bf16 rounding reaches,
+    such as random weights' identity transform), 0 if got agrees too."""
+    diff, scale = (float((x - y).double().pow(2).mean().sqrt())
+                   for x, y in ((got, want16), (want16, want32)))
+    if scale == 0:
+        return 0.0 if diff == 0 else float("inf")
+    return diff / scale
 
 
 def max_err_checked(got, want, what, rtol=RTOL, atol=ATOL):
@@ -388,8 +448,15 @@ def main(argv):
     from os2d_torch.data.dataloader import DataloaderOneShotDetection
     from os2d_torch.data.dataset import DatasetOneShotDetection
     from os2d_torch.engine.evaluate import Evaluator, evaluate, unpack_detections
+    from os2d_torch.engine.decode import (
+        decode_pyramid,
+        decode_single_level,
+        default_boxes_for_image_size,
+    )
     from os2d_torch.models import Os2dConfig, Os2dModel
     from os2d_torch.models import head as head_module
+    from os2d_torch.models.os2d import fold_inference_params
+    from os2d_torch.models.resnet import Conv2d
     from os2d_torch.data.dataloader import build_train_dataloader_from_config
     from os2d_torch.engine.objective import ObjectiveConfig
     from os2d_torch.engine.optimization import create_optimizer
@@ -399,7 +466,7 @@ def main(argv):
         trainable_parameters,
         trainval_loop,
     )
-    from os2d_torch.ops import hat_resample, resample, resample_grad
+    from os2d_torch.ops import hat_resample, nms, resample, resample_grad
     from os2d_torch.ops.cuda import BUILD_DIR, build_all
     from os2d_torch.ops.sampling import (
         hat_resample_operand,
@@ -1022,9 +1089,282 @@ def main(argv):
           "atol_relative": ATOL, "rtol": RTOL})
     del g, g_sum, corr, px, py, mask_t
 
+    # ---- 12. NMS above dense_limit (the block-sequential path) ----
+    # exact keep masks on the same candidates on the card and the CPU: the
+    # cross-class NMS of ROADMAP's fault (33 rows x top_k 256 = 8448 boxes),
+    # and one per-row NMS over all 39,580 anchors of a bench image
+    nms_rng = np.random.default_rng(0)
+    g33_level = FeatureMapSize(w=320, h=320)
+    g33_a = 20 * 20
+    g33_loc = torch.from_numpy(nms_rng.normal(0, 0.1, (NMS_G, 4, g33_a)).astype(np.float32))
+    g33_cls = torch.from_numpy(nms_rng.uniform(-1, 1, (NMS_G, g33_a)).astype(np.float32))
+    g33_kw = dict(nms_iou_threshold=0.3, pre_top_k=1024, top_k=256)
+    per_row = decode_pyramid([g33_loc], [g33_cls], [g33_level], [(1.0, 1.0)], **g33_kw)
+    g33_in = (per_row["boxes"].reshape(-1, 4), per_row["scores"].reshape(-1),
+              per_row["valid"].reshape(-1))
+    g33_decode = {}
+    for dev in ("cuda", "cpu"):
+        out = decode_pyramid([g33_loc.to(dev)], [g33_cls.to(dev)], [g33_level], [(1.0, 1.0)],
+                             nms_across_classes=True, **g33_kw)
+        g33_decode[dev] = {k: v.cpu() for k, v in out.items()}
+    g33_keep = {dev: nms.nms_keep_mask(*(x.to(dev) for x in g33_in), 0.3).cpu()
+                for dev in ("cuda", "cpu")}
+    row_in = []
+    for lvl, (sz, fm) in enumerate(zip(sizes, fms)):
+        a = fm.h * fm.w
+        row_loc = torch.from_numpy(nms_rng.normal(0, 0.1, (1, NMS_ROW_G, 4, a)).astype(np.float32))
+        row_cls = torch.from_numpy(nms_rng.uniform(-1, 1, (1, NMS_ROW_G, a)).astype(np.float32))
+        row_in.append(decode_single_level(row_loc, row_cls, default_boxes_for_image_size(sz),
+                                          (sz.w, sz.h), inv[lvl], float("-inf")))
+    row_in = [torch.cat(parts, dim=-2 if parts[0].dim() == 4 else -1) for parts in zip(*row_in)]
+    row_keep, row_s, row_sweeps = {}, {}, {}
+    for dev in ("cpu", "cuda", "cuda"):  # the second card run is the timed one
+        args = [x.to(dev) for x in row_in]
+        nms.fixpoint_sweeps = 0
+        t0 = time.perf_counter()
+        row_keep[dev] = nms.nms_keep_mask(*args, 0.3).cpu()
+        row_s[dev] = time.perf_counter() - t0
+        row_sweeps[dev] = nms.fixpoint_sweeps
+    g33_decode_equal = (torch.equal(g33_decode["cuda"]["valid"], g33_decode["cpu"]["valid"])
+                        and torch.equal(g33_decode["cuda"]["scores"], g33_decode["cpu"]["scores"]))
+    g33_box_err = float((g33_decode["cuda"]["boxes"] - g33_decode["cpu"]["boxes"]).abs().max())
+    emit({"phase": "nms_blocked",
+          "cross_class": {"rows": NMS_G, "boxes": int(g33_in[0].shape[0]),
+                          "kept": int(g33_keep["cuda"].sum()),
+                          "keep_equal": torch.equal(g33_keep["cuda"], g33_keep["cpu"]),
+                          "decode_valid_and_scores_equal": g33_decode_equal,
+                          "decode_box_max_abs_err": g33_box_err},
+          "per_row": {"shape": list(row_in[1].shape), "kept": row_keep["cuda"].sum(-1).tolist(),
+                      "keep_equal": torch.equal(row_keep["cuda"], row_keep["cpu"]),
+                      "ms": row_s["cuda"] * 1e3, "cpu_ms": row_s["cpu"] * 1e3,
+                      "fixpoint_sweeps": row_sweeps["cuda"],
+                      "host_waits": row_sweeps["cuda"], "blocks": -(-row_in[1].shape[-1] // 2048)}})
+    if not torch.equal(g33_keep["cuda"], g33_keep["cpu"]):
+        raise SystemExit("nms_blocked: the cross-class keep mask differs between card and CPU")
+    if not torch.equal(row_keep["cuda"], row_keep["cpu"]):
+        raise SystemExit("nms_blocked: the per-row keep mask differs between card and CPU")
+    if not 0 < int(g33_keep["cuda"].sum()) < int(g33_in[2].sum()):
+        raise SystemExit("nms_blocked: the cross-class NMS suppressed nothing or everything")
+
+    # ---- 13. numeric modes: BN folding and bf16 compute ----
+    base_state = model.state_dict()
+
+    def mode_model(compute_dtype, folded, device="cuda", state=base_state):
+        m = Os2dModel(Os2dConfig(compute_dtype=compute_dtype), device=device)
+        m.load_state_dict({k: v.to(device) for k, v in state.items()})
+        return fold_inference_params(m) if folded else m
+
+    planted_cfg = get_default_cfg()
+    planted_cfg.tpu.eval_pre_top_k = 256
+    planted_cfg.tpu.eval_top_k = 16
+    planted_class_images = [(torch.from_numpy(p).float() / 255.0 - torch.tensor(norm["mean"]))
+                            / torch.tensor(norm["std"]) for p in patches]
+
+    def planted_detections(m):
+        ev_m = Evaluator(m, planted_cfg)
+        head_m, _ = ev_m.build_class_heads(planted_class_images)
+        return unpack_detections(ev_m.detect_images(scenes, head_m, level, [(1.0, 1.0)], norm))
+
+    # (a) fp32 folded against fp32 unfolded on the card
+    reset_counts()
+    fold_dets = planted_detections(mode_model("float32", True))
+    fold_counts = read_counts()
+    fold_agree = detections_agree(fold_dets, planted_detections(model))
+
+    # (b) bf16, folded and unfolded, the card against the CPU stage by stage
+    # on the CPU's own inputs (the stem, each bottleneck, the class bank from
+    # the C4 features, the head), by the bf16 rule; on a 256x320 crop of the
+    # first scene that holds its planted patch, to bound the CPU's time
+    x_cpu = ((torch.from_numpy(scenes[:1, :256, :320]).float() / 255.0
+              - torch.tensor(norm["mean"])) / torch.tensor(norm["std"])).permute(0, 3, 1, 2)
+    # a non-zero final TransformNet layer, so that theta, loc and corners vary
+    # (random weights give the identity transform)
+    stage_state = dict(base_state)
+    stage_state["transform_net.linear.weight"] = 0.02 * torch.randn(
+        base_state["transform_net.linear.weight"].shape, generator=torch.Generator().manual_seed(1))
+    bf16_ratios, bf16_conv_ratios, bf16_dtypes = {}, {}, {}
+    for folded in (False, True):
+        mode = "bf16_fold" if folded else "bf16"
+        card16 = mode_model("bfloat16", folded, state=stage_state)
+        cpu16 = mode_model("bfloat16", folded, "cpu", stage_state)
+        cpu32 = mode_model("float32", folded, "cpu", stage_state)
+        ratios, conv_ratios = {}, {}
+
+        def rule(name, got, want16, want32, into=ratios):
+            if got.dtype != want16.dtype:
+                raise SystemExit(f"numeric_modes {mode} {name}: dtype {got.dtype} on the card, "
+                                 f"{want16.dtype} on the CPU")
+            into[name] = bf16_ratio(got.cpu().float(), want16.float(), want32.float())
+
+        with torch.no_grad():
+            # every convolution of the backbone on the CPU's own input
+            convs = [{n: c for n, c in m.backbone.named_modules() if isinstance(c, Conv2d)}
+                     for m in (card16, cpu16, cpu32)]
+            seen = []
+            hooks = [c.register_forward_hook(
+                lambda mod, args, out, n=n: seen.append((n, args[0], out)))
+                for n, c in convs[1].items()]
+            try:
+                cpu16.backbone(x_cpu.permute(0, 2, 3, 1))
+            finally:
+                for h in hooks:
+                    h.remove()
+            for n, x, out16 in seen:
+                rule(n, convs[0][n](x.cuda(), torch.bfloat16), out16,
+                     convs[2][n](x.float(), torch.float32), conv_ratios)
+            del seen
+            # then the stages, each on the CPU's output of the stage before
+            want16, want32 = cpu16.backbone.stem(x_cpu), cpu32.backbone.stem(x_cpu)
+            rule("stem", card16.backbone.stem(x_cpu.cuda()), want16, want32)
+            for i, (blk_card, blk16, blk32) in enumerate(zip(
+                    card16.backbone.blocks(), cpu16.backbone.blocks(), cpu32.backbone.blocks())):
+                x = want16
+                want16, want32 = blk16(x, torch.bfloat16), blk32(x.float(), torch.float32)
+                rule(f"block{i}", blk_card(x.cuda(), torch.bfloat16), want16, want32)
+            fm = want16.permute(0, 2, 3, 1)
+            bank16 = head_module.build_class_head(fm)
+            bank_card = head_module.build_class_head(fm.cuda())
+            if fm.dtype == torch.bfloat16:
+                rule("class_feats", bank_card.class_feats, bank16.class_feats,
+                     head_module.build_class_head(fm.float()).class_feats)
+            bank_card = head_module.ClassHead(bank16.class_feats.cuda(), bank16.pool_mask.cuda())
+            out16 = cpu16.apply_head(fm, bank16)
+            out32 = cpu32.apply_head(fm.float(), head_module.ClassHead(
+                bank16.class_feats.float(), bank16.pool_mask.float()))
+            reset_counts()
+            out_card = card16.apply_head(fm.cuda(), bank_card)
+            torch.cuda.synchronize()
+            if read_counts()["hat_resample_correlation"] != 1:
+                raise SystemExit(f"numeric_modes {mode}: the head did not launch the hat kernel")
+            for key in ("cls", "loc", "corners"):
+                rule(key, out_card[key], out16[key], out32[key])
+        bf16_ratios[mode] = ratios
+        bf16_conv_ratios[mode] = conv_ratios
+        bf16_dtypes[mode] = {"features": str(fm.dtype),
+                             "class_feats": str(bank16.class_feats.dtype),
+                             "pool_mask": str(bank16.pool_mask.dtype),
+                             "cls": str(out16["cls"].dtype)}
+        del card16, cpu16, cpu32
+
+    # (c) evaluate() with cfg.tpu.fold_bn, the card against the CPU
+    fold_eval_cfg = eval_cfg.clone()
+    fold_eval_cfg.tpu.fold_bn = True
+    cpu_model = mode_model("float32", False, "cpu")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        df = write_planted_dataset(root)
+        dataset = DatasetOneShotDetection(
+            df, gt_path=os.path.join(root, "classes", "images"),
+            image_path=os.path.join(root, "src"), name="planted", image_size=640,
+            eval_scale=640, cache_images=True)
+        loader = DataloaderOneShotDetection(dataset, batch_size=1,
+                                            pyramid_scales_eval=EVAL_PYRAMID)
+        reset_counts()
+        fold_results = evaluate(loader, model, fold_eval_cfg)
+        fold_eval_counts = read_counts()
+        fold_cpu_results = evaluate(loader, cpu_model, fold_eval_cfg)
+    del cpu_model
+    emit({"phase": "numeric_modes",
+          "fp32_fold_vs_fp32": {"detections_agree": fold_agree, "score_atol": 1e-4,
+                                "box_atol": 1e-2, "valid": int(fold_dets["valid"].sum()),
+                                "launches": fold_counts},
+          "bf16_rule_per_conv": BF16_RULE, "bf16_rule_per_stage": BF16_STAGE_RULE,
+          "bf16_conv_ratio_card_vs_cpu": {m: {"convs": len(r), "max": max(r.values()),
+                                              "worst": max(r, key=r.get)}
+                                          for m, r in bf16_conv_ratios.items()},
+          "bf16_stage_ratio_card_vs_cpu": bf16_ratios,
+          "bf16_dtypes": bf16_dtypes,
+          "evaluate_fold_bn": {"mAP@0.50": fold_results["mAP@0.50"],
+                               "cpu_mAP@0.50": fold_cpu_results["mAP@0.50"],
+                               "launches": fold_eval_counts}})
+    if not fold_agree:
+        raise SystemExit("numeric_modes: fp32 folded detections differ from the unfolded ones")
+    require_launches("numeric_modes", fold_counts, "hat_resample_correlation")
+    for m in bf16_ratios:
+        if not (max(bf16_conv_ratios[m].values()) <= BF16_RULE
+                and max(bf16_ratios[m].values()) <= BF16_STAGE_RULE):
+            raise SystemExit(f"numeric_modes: {m} breaks the bf16 rule on the card: "
+                             f"{bf16_conv_ratios[m]} {bf16_ratios[m]}")
+    if not (fold_results["mAP@0.50"] >= 0.9
+            and fold_results["mAP@0.50"] == fold_cpu_results["mAP@0.50"]):
+        raise SystemExit(f"numeric_modes: evaluate() with fold_bn gives mAP@0.50 "
+                         f"{fold_results['mAP@0.50']} on the card, "
+                         f"{fold_cpu_results['mAP@0.50']} on the CPU")
+    require_launches("numeric_modes", fold_eval_counts, "hat_resample_correlation")
+
+    # ---- 14. the modes in turns at the bench protocol ----
+    mode_runs = {}
+    for name, compute_dtype, folded in NUMERIC_MODES:
+        ev_m = Evaluator(mode_model(compute_dtype, folded), cfg)
+        head_m, _ = ev_m.build_class_heads(class_images)
+        ev_m.detect_images(batches[-1], head_m, sizes, inv, norm)  # warmup
+        mode_runs[name] = (ev_m, head_m)
+    torch.cuda.synchronize()
+    names = [n for n, _, _ in NUMERIC_MODES]
+    mode_times = {n: [] for n in names}
+    for i, name in enumerate((names + names[::-1]) * NUMERIC_ROUNDS):
+        ev_m, head_m = mode_runs[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = ev_m.detect_images(batches[i % TIMED_DISPATCHES], head_m, sizes, inv, norm)
+        torch.cuda.synchronize()
+        mode_times[name].append(time.perf_counter() - t0)
+        require_launches(f"numeric_timing {name}", read_counts(), "hat_resample_correlation",
+                         len(PYRAMID))
+        d = unpack_detections(out)
+        if not (np.isfinite(d["scores"][d["valid"]]).all() and d["valid"].any()):
+            raise SystemExit(f"numeric_timing {name}: non-finite or no detections")
+    mode_median = {n: float(np.median(v)) for n, v in mode_times.items()}
+    emit({"phase": "numeric_timing", "order": "fp32, fp32_fold, bf16, bf16_fold, and back",
+          "images": f"{BATCH}x{IMG_W}x{IMG_H} uint8", "levels": len(PYRAMID),
+          "classes": NUM_CLASSES, "resample_precision": "default", "dispatch_s": mode_times,
+          "median_dispatch_ms": {n: m * 1e3 for n, m in mode_median.items()},
+          "spread_ms": {n: [min(v) * 1e3, max(v) * 1e3] for n, v in mode_times.items()},
+          "img_per_s": {n: BATCH / m for n, m in mode_median.items()},
+          "hat_launches_per_dispatch": len(PYRAMID)})
+
+    # ---- 15. the first train step at bf16, the card against the CPU ----
+    bf16_train = Os2dModel(Os2dConfig(compute_dtype="bfloat16"), seed=1)
+    cpu_bf16_train = Os2dModel(Os2dConfig(compute_dtype="bfloat16"), device="cpu")
+    cpu_bf16_train.load_state_dict({k: v.cpu() for k, v in bf16_train.state_dict().items()})
+    first16 = {}
+    for dev, m in (("cuda", bf16_train), ("cpu", cpu_bf16_train)):
+        opt = create_optimizer(train_cfg.train.optim, trainable_parameters(m, train_cfg.train))
+        step16 = TrainStep(m, first_objective, opt, train_cfg.train)
+        arrays16, c_pad16 = prepare_batch_arrays(train_batch, m.device)
+        if dev == "cuda":
+            reset_counts()
+        first16[dev] = step16(arrays16, c_pad16)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            first16_counts = read_counts()
+    del bf16_train, cpu_bf16_train, step16, arrays16
+    # |card - CPU| within BF16_STEP_RULE times |CPU bf16 - CPU fp32|, or
+    # within phase 9's fp32 tolerance where bf16 moves a scalar less than the
+    # card and the CPU differ anyway (at random weights the loss moved 3e-6)
+    step_err = {k: abs(first16["cuda"][k] - first16["cpu"][k]) for k in first16["cpu"]}
+    step_bound = {k: max(BF16_STEP_RULE * abs(first16["cpu"][k] - first["cpu"][k]),
+                         TRAIN_CPU_RTOL * abs(first16["cpu"][k])) for k in first16["cpu"]}
+    emit({"phase": "train_first_step_bf16", "margin_pos": FIRST_STEP_MARGIN_POS,
+          "cuda": first16["cuda"], "cpu": first16["cpu"], "cpu_fp32": first["cpu"],
+          "abs_err": step_err, "bound": step_bound, "bf16_step_rule": BF16_STEP_RULE,
+          "rtol": TRAIN_CPU_RTOL, "launches": first16_counts})
+    if not all(np.isfinite(v) for v in first16["cuda"].values()):
+        raise SystemExit(f"train_first_step_bf16: non-finite metrics {first16['cuda']}")
+    for k in ("loss", "grad_norm"):
+        if not step_err[k] <= step_bound[k]:
+            raise SystemExit(f"train_first_step_bf16: {k} {first16['cuda'][k]} on the card, "
+                             f"{first16['cpu'][k]} on the CPU (fp32 {first['cpu'][k]})")
+    require_launches("train_first_step_bf16", first16_counts, "hat_resample_correlation", 1)
+    require_launches("train_first_step_bf16", first16_counts, "resample_correlation_backward", 1)
+
     if "--profile" in argv:
         profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),
                     main_median)
+        for name in ("fp32_fold", "bf16_fold"):
+            ev_m, head_m = mode_runs[name]
+            profile_run(f"profile_{name}",
+                        lambda: ev_m.detect_images(batches[0], head_m, sizes, inv, norm),
+                        mode_median[name])
         profile_run("profile_train", lambda: step(arrays, c_pad), train_median)
 
     emit({"kernels": [{

@@ -7,9 +7,10 @@ A copy of `os2d_tpu/config.py` with the same keys and defaults, so that a
 config edit means the same thing to both packages. The additions grouped
 under `cfg.tpu` keep their names; the PyTorch port reads the ones on its
 eval path (`eval_class_chunk`, `eval_pre_top_k`, `eval_top_k`,
-`eval_class_prescreen`), refuses in `engine.evaluate.evaluate` those whose
-paths are not ported (`device_side_pyramid=False`, `quantize_class_feats`,
-`fold_bn`, `upload_pixel_format="yuv420"`) and ignores the rest.
+`eval_class_prescreen`, `fold_bn`), refuses in `engine.evaluate.evaluate`
+those whose paths are not ported (`device_side_pyramid=False`,
+`quantize_class_feats`, `upload_pixel_format="yuv420"`) and ignores the rest
+(the model's numerics are its `Os2dConfig`'s, as in the JAX package).
 """
 
 from __future__ import annotations

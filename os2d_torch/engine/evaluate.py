@@ -13,8 +13,10 @@
 - `evaluate` runs a dataloader to VOC mAP, and with a `criterion` also to
   the training objective's loss terms per image (the prescreen is bypassed
   then: negatives count).
+- With cfg.tpu.fold_bn, `evaluate` runs a copy of the model with its
+  BatchNorms folded (`models.os2d.fold_inference_params`).
 Not ported yet: the host-pyramid and heatmap paths, visualisation, int8
-class banks, BN folding and meshes.
+class banks and meshes.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from ..data.voc_eval import do_voc_evaluation
-from ..models.head import ClassHead
+from ..models.head import ClassHead, correlation_gemm
+from ..models.os2d import fold_inference_params
 from ..ops.geometry import l2_normalize_channels
 from ..ops.sampling import resize_bilinear_antialias
 from .decode import decode_pyramid, default_boxes_for_image_size
@@ -37,7 +40,7 @@ from .objective import compute_objective
 from .targets import encode_targets, remap_targets
 
 
-def prescreen_margin(resample_precision: str) -> float:
+def prescreen_margin(resample_precision: str, compute_dtype: str = "float32") -> float:
     """Safety margin of the class prescreen: a class survives phase 1 iff its
     correlation ceiling > eval.nms_score_threshold - margin.
 
@@ -50,11 +53,13 @@ def prescreen_margin(resample_precision: str) -> float:
     - "default": the hat kernel rounds corr*mask and the hat rows to bf16
       (2^-9 relative each); for cosine scores |corr| <= 1 the combined
       absolute error is <= ~2^-8 ~= 4e-3.
+    - compute_dtype "bfloat16" also rounds the phase-1 correlation's inputs
+      (feature maps, class features): another 4e-3.
     A larger margin only admits extra classes (slower, never wrong)."""
     margins = {"highest": 1e-4, "high": 1e-4, "default": 4e-3}
     if resample_precision not in margins:
         raise ValueError(f"no prescreen margin for resample_precision {resample_precision!r}")
-    return margins[resample_precision]
+    return margins[resample_precision] + (4e-3 if compute_dtype == "bfloat16" else 0.0)
 
 
 def unpack_detections(packed) -> Dict[str, np.ndarray]:
@@ -299,7 +304,8 @@ class Evaluator:
         ceiling is <= eval.nms_score_threshold cannot produce a valid
         detection: decode drops scores <= threshold. The ceiling's GEMM and
         max are plain torch.matmul/amax (JAX computes them outside any Pallas
-        kernel).
+        kernel), the GEMM on operands rounded to the compute dtype with an
+        fp32 result, as the head's (os2d_tpu/engine/evaluate.py:789-798).
         Phase 2: alignment + resample + decode on ONLY the surviving classes'
         rows, padded to a power-of-two number of class chunks with duplicates
         of row 0 whose scores are masked to -inf; the feature maps stay on the
@@ -314,6 +320,7 @@ class Evaluator:
         top_k = int(cfg.tpu.eval_top_k)
         chunk = int(cfg.tpu.eval_class_chunk)
         device = self.model.device
+        compute_dtype = self.model.compute_dtype
 
         fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
         n_img = fms[0].shape[0]
@@ -322,13 +329,15 @@ class Evaluator:
             fmn = l2_normalize_channels(fm, eps=1e-5, dim=-1).reshape(-1, f)
             for start in range(0, c_total, chunk):
                 feats = feats_bank[start:start + chunk]
-                corr = fmn @ feats.reshape(-1, f).T  # [B*A, n*225]
+                # [B*A, n*225]
+                corr = correlation_gemm(fmn, feats.reshape(-1, f), compute_dtype)
                 top = corr.reshape(corr.shape[0], feats.shape[0], -1).amax(dim=(0, 2))
                 ceil[start:start + feats.shape[0]] = torch.maximum(
                     ceil[start:start + feats.shape[0]], top)
         # group ceilings over TTA views; the margin absorbs the rounding
         # difference between the phases
-        margin = prescreen_margin(self.model.config.resample_precision)
+        margin = prescreen_margin(self.model.config.resample_precision,
+                                  self.model.config.compute_dtype)
         ceil_groups = ceil.cpu().numpy().reshape(n_groups, num_views).max(1)
         sel = np.nonzero(ceil_groups > threshold - margin)[0]
         self.prescreen_pruned += n_groups - int(sel.size)
@@ -374,8 +383,6 @@ def _unported_eval_options(cfg, mesh):
             unported.append(f"cfg.visualization.eval.{flag}")
     if bool(cfg.tpu.quantize_class_feats):
         unported.append("cfg.tpu.quantize_class_feats (int8 class banks)")
-    if bool(cfg.tpu.fold_bn):
-        unported.append("cfg.tpu.fold_bn")
     pixel_format = str(cfg.tpu.upload_pixel_format)
     if pixel_format == "yuv420":
         unported.append("cfg.tpu.upload_pixel_format='yuv420'")
@@ -400,7 +407,10 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     `criterion` (an ObjectiveConfig) the results also hold the mean over
     images of each loss term of the objective, from the same scores (the
     prescreen is bypassed then: every class row counts as a negative).
-    Options of the JAX package that are not ported raise NotImplementedError.
+    With cfg.tpu.fold_bn the BatchNorms are folded into a copy of the model
+    before the class heads are built (os2d_tpu/engine/evaluate.py:1017-1020);
+    the caller's model is left as it was. Options of the JAX package that
+    are not ported raise NotImplementedError.
     """
     unported = _unported_eval_options(cfg, mesh)
     if unported:
@@ -410,6 +420,8 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     logger.info(f"Starting evaluation on {dataset_name}")
     t_start = time.time()
 
+    if bool(cfg.tpu.fold_bn):
+        model = fold_inference_params(model)
     evaluator = Evaluator(model, cfg)
     class_images, _, class_ids = dataloader.get_all_class_images()
     class_head, num_views = evaluator.build_class_heads(

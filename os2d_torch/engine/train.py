@@ -92,7 +92,11 @@ def _normalize_u8(x, mean, std):
 class TrainStep:
     """One optimizer step per call on a prepared batch
     (os2d_tpu/engine/train.py:93-233). The model is put in train mode (every
-    parameter requires a gradient)."""
+    parameter requires a gradient); a folded model raises there. The forward
+    runs at the model's compute dtype, as JAX's step runs at
+    model_cfg.dtype (os2d_tpu/engine/train.py:149-166): parameters and the
+    optimizer's state stay fp32, the bf16 casts sit inside the forward, and
+    autograd returns fp32 gradients to the fp32 leaves, as jax.grad does."""
 
     def __init__(self, model, objective_cfg: ObjectiveConfig, optimizer, train_cfg):
         self.model = model.train_mode(True)

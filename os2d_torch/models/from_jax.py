@@ -4,6 +4,10 @@ the `Os2dModel` state_dict.
 Convolutions go from HWIO to OIHW; BatchNorm's scale/bias/mean/var become
 weight/bias/running_mean/running_var; the TransformationNet's conv biases map
 across; `label_backbone` is read when present (os2d_tpu/models/os2d.py:6-16).
+Folded params (`os2d_tpu.models.os2d.fold_inference_params`) convert too:
+a `{"folded_bias": b}` slot becomes `<bn>.folded_bias` and a TransformNet
+without "bn*" keys has no bn entries, which is the state_dict of
+`os2d_torch.models.os2d.fold_inference_params(model)`.
 The leaves must be numpy arrays (call np.asarray on JAX arrays first), so
 this package never imports JAX.
 """
@@ -25,10 +29,13 @@ def _vec(v) -> torch.Tensor:
 
 
 def _bn(sd, prefix: str, p) -> None:
+    if "folded_bias" in p:
+        sd[prefix + ".folded_bias"] = _vec(p["folded_bias"])
+        return
     if "mean" not in p:
         raise ValueError(
-            f"{prefix}: only frozen BatchNorm (scale/bias/mean/var) is ported, "
-            f"got keys {sorted(p)}")
+            f"{prefix}: only frozen BatchNorm (scale/bias/mean/var) or its folded "
+            f"bias is ported, got keys {sorted(p)}")
     sd[prefix + ".weight"] = _vec(p["scale"])
     sd[prefix + ".bias"] = _vec(p["bias"])
     sd[prefix + ".running_mean"] = _vec(p["mean"])
@@ -58,7 +65,8 @@ def transform_net_state_dict_from_jax(params, prefix: str = "") -> Dict[str, tor
         sd[f"{prefix}{name}.weight"] = _oihw(params[name]["w"])
         sd[f"{prefix}{name}.bias"] = _vec(params[name]["b"])
     for name in ("bn0", "bn1"):
-        _bn(sd, prefix + name, params[name])
+        if name in params:
+            _bn(sd, prefix + name, params[name])
     return sd
 
 

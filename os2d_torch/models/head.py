@@ -100,6 +100,27 @@ def build_class_head(class_feature_maps) -> ClassHead:
     return ClassHead(feats, make_class_pool_mask(feats.shape[0], feats.device, feats.dtype))
 
 
+def correlation_gemm(a, b, compute_dtype=torch.float32):
+    """a [M, F] @ b [N, F].T with both operands rounded to `compute_dtype`
+    and an fp32 result: JAX's einsum with preferred_element_type=float32
+    (os2d_tpu/models/head.py:219-224). The correlation stays fp32 in every
+    mode (the prescreen's margins and both resample kernels take fp32 corr);
+    torch.matmul on bf16 operands would return bf16, rounding corr to 8 bits.
+    With bfloat16 operands on the card and no gradient to record, this is
+    cuBLAS's bf16 GEMM with fp32 sums and an fp32 output
+    (`torch.mm(..., out_dtype=torch.float32)`; Os2dModel forbids bf16
+    reductions). Elsewhere, on the CPU (which has no such GEMM) and in
+    training (it has no autograd formula), the bf16-rounded operands are
+    upcast for one fp32 GEMM with TF32 off: their products are exact in
+    fp32, so only the order of the fp32 sums differs."""
+    if compute_dtype == torch.float32:
+        return a @ b.T
+    a, b = a.to(compute_dtype), b.to(compute_dtype)
+    if a.is_cuda and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
+        return torch.mm(a, b.T, out_dtype=torch.float32)
+    return a.float() @ b.float().T
+
+
 def _prepare_theta(tparams, simple_affine: bool):
     """[N, p] regressor outputs -> [N, 2, 3] affine matrices
     (os2d/modeling/head.py:81-107)."""
@@ -119,6 +140,7 @@ def head_forward(
     use_inverse_geom_model: bool = True,
     resample_precision: str = "default",
     corr_interior_first: bool = True,
+    compute_dtype=torch.float32,
 ):
     """Score every (image, class, anchor) triple.
 
@@ -132,6 +154,9 @@ def head_forward(
         (ops/resample.py); "int8" is not ported.
       corr_interior_first: only the interior-first channel order (the JAX
         default) is ported.
+      compute_dtype: the correlation's operands are rounded to it and its
+        output is fp32 (`correlation_gemm`); the TransformNet follows its own
+        compute dtype. The feature maps are L2-normalized in their own dtype.
 
     The resample goes through `ops.resample_grad` (the tier's forward kernel;
     the hat-form gradient kernel backward), and cls_detached is the same
@@ -169,7 +194,7 @@ def head_forward(
     # (weakalign order, os2d/modeling/head.py:342-350)
     perm = torch.tensor(_interior_permutation(), device=device)
     feats_t = class_head.class_feats.transpose(1, 2).reshape(c, t_dim, f)[:, perm]
-    corr = (fm.reshape(b * a, f) @ feats_t.reshape(c * t_dim, f).T)
+    corr = correlation_gemm(fm.reshape(b * a, f), feats_t.reshape(c * t_dim, f), compute_dtype)
     corr = corr.reshape(b, h, w, c, t_dim).permute(0, 3, 1, 2, 4).contiguous()  # [B, C, H, W, T]
 
     # regress transformation parameters per (image, class, anchor)
@@ -185,7 +210,10 @@ def head_forward(
     ts = slice(bw, TEMPLATE_H - bw)
     n_side = TEMPLATE_H - 2 * bw
     n_int = n_side * (TEMPLATE_W - 2 * bw)
-    mask_t = class_head.pool_mask[:, ts, ts].transpose(1, 2).reshape(c, n_int).contiguous()
+    # a bfloat16 bank's pool mask takes the fp32 of its rounded values, as
+    # JAX casts it to corr's dtype (os2d_tpu/ops/sampling.py:182)
+    mask_t = class_head.pool_mask[:, ts, ts].transpose(1, 2).reshape(c, n_int)
+    mask_t = mask_t.float().contiguous()
 
     th6 = theta.reshape(b, c, 1, a, 2, 3)
     xs_int = linspace(-1.0, 1.0, TEMPLATE_W, device=device)[ts]

@@ -15,6 +15,7 @@ computed once and passed around explicitly, so classes batch as an axis.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -22,8 +23,10 @@ from torch import nn
 
 from ..structures.feature_map import FeatureMapSize, feature_map_size_for_image
 from .head import ClassHead, build_class_head, head_forward
-from .resnet import ResNetC4
-from .transform_net import TransformNet
+from .resnet import ResNetC4, fold_batchnorm_c4
+from .transform_net import TransformNet, fold_batchnorm_transform_net
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 IMG_NORMALIZATION_MEAN = (0.485, 0.456, 0.406)
 IMG_NORMALIZATION_STD = (0.229, 0.224, 0.225)
@@ -42,7 +45,8 @@ class Os2dConfig:
     class_image_size: int = 240
     normalization_mean: tuple = IMG_NORMALIZATION_MEAN
     normalization_std: tuple = IMG_NORMALIZATION_STD
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # or "bfloat16": convolutions and the
+    # correlation's operands in bf16, as the JAX package rounds them
     resample_precision: str = "default"  # "default": the bf16 hat-weight
     # resample (csrc/hat_resample.cu); "high" | "highest": the fp32 gather
     # (csrc/resample.cu); "int8" is not ported
@@ -75,14 +79,19 @@ class Os2dModel(nn.Module):
 
     Runs on `device`, by default "cuda"; it raises if CUDA is absent rather
     than moving to the CPU. Pass device="cpu" to run the plain versions of the
-    kernels. Numerics are fp32: TF32 is switched off for both cuDNN
-    convolutions and matmuls (torch.backends.cudnn.allow_tf32 and
-    torch.backends.cuda.matmul.allow_tf32, process-wide). The weights are
-    filled from `seed` (init_os2d_params) and can be replaced with
-    load_state_dict. It starts in eval form, with no autograd state;
-    `train_mode(True)` makes every parameter require a gradient (the
-    training engine, `engine/train.py`, chooses which of them the optimizer
-    updates).
+    kernels. Numerics follow `config.compute_dtype` (fp32 or bfloat16,
+    rounded where the JAX package rounds; the correlation and the
+    TransformNet's output are fp32 in both). TF32 is switched off for both
+    cuDNN convolutions and matmuls (torch.backends.cudnn.allow_tf32 and
+    torch.backends.cuda.matmul.allow_tf32), and cuBLAS may not reduce a bf16
+    GEMM in bf16 (torch.backends.cuda.matmul
+    .allow_bf16_reduced_precision_reduction), process-wide: XLA accumulates
+    in fp32. The weights are filled from `seed` (init_os2d_params) and can
+    be replaced with load_state_dict. It starts in eval form, with no
+    autograd state; `train_mode(True)` makes every parameter require a
+    gradient (the training engine, `engine/train.py`, chooses which of them
+    the optimizer updates). `fold_inference_params` gives a folded copy for
+    inference, which refuses to train.
     """
 
     def __init__(self, config: Os2dConfig = Os2dConfig(), device=None, seed: int = 0):
@@ -92,19 +101,22 @@ class Os2dModel(nn.Module):
             raise RuntimeError(
                 "Os2dModel targets CUDA by default and no CUDA device is "
                 "available; pass device='cpu' to run on the CPU")
-        if config.compute_dtype != "float32":
-            raise NotImplementedError("only compute_dtype='float32' is ported")
+        if config.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {config.compute_dtype!r}")
         if config.use_group_norm:
             raise NotImplementedError("GroupNorm backbones are not ported")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.config = config
         self.device = device
-        self.backbone = ResNetC4(config.backbone_arch, device)
+        self.compute_dtype = dtype = COMPUTE_DTYPES[config.compute_dtype]
+        self.folded = False
+        self.backbone = ResNetC4(config.backbone_arch, device, dtype)
         self.label_backbone = (None if config.merge_branch_parameters
-                               else ResNetC4(config.backbone_arch, device))
+                               else ResNetC4(config.backbone_arch, device, dtype))
         self.transform_net = TransformNet(
-            4 if config.use_simplified_affine_model else 6, device)
+            4 if config.use_simplified_affine_model else 6, device, dtype)
         init_os2d_params(self, seed)
         self.train_mode(False)
         self.eval()
@@ -113,7 +125,12 @@ class Os2dModel(nn.Module):
         """Every parameter requires a gradient (enabled) or none does. The JAX
         trainer differentiates every leaf of its params, frozen ones included
         (they count in the gradient norm, os2d_tpu/engine/train.py:208);
-        BatchNorm stays in its frozen form either way."""
+        BatchNorm stays in its frozen form either way. A folded model
+        (`fold_inference_params`) raises: its weights carry frozen
+        statistics and are not the parameters that train."""
+        if enabled and self.folded:
+            raise ValueError("a model with folded BatchNorms is for inference only; "
+                             "train the unfolded model")
         self.requires_grad_(enabled)
         return self
 
@@ -155,7 +172,25 @@ class Os2dModel(nn.Module):
             use_inverse_geom_model=self.config.use_inverse_geom_model,
             resample_precision=self.config.resample_precision,
             corr_interior_first=self.config.corr_interior_first,
+            compute_dtype=self.compute_dtype,
         )
 
     def get_feature_map_size(self, img_size: FeatureMapSize) -> FeatureMapSize:
         return feature_map_size_for_image(img_size)
+
+
+def fold_inference_params(model: Os2dModel) -> Os2dModel:
+    """Inference-only: a copy of `model` with every frozen BatchNorm folded
+    into its convolution, in the backbone, the label backbone when it is
+    separate, and the TransformNet (os2d_tpu/models/os2d.py:100-120). The
+    folded model does less work per layer and, with bfloat16 compute, keeps
+    the backbone bfloat16 end to end. The caller's model is left as it was;
+    the copy refuses `train_mode(True)`."""
+    folded = copy.copy(model)
+    folded._modules = dict(model._modules)
+    folded.backbone = fold_batchnorm_c4(model.backbone)
+    if model.label_backbone is not None:
+        folded.label_backbone = fold_batchnorm_c4(model.label_backbone)
+    folded.transform_net = fold_batchnorm_transform_net(model.transform_net)
+    folded.folded = True
+    return folded.train_mode(False)

@@ -8,10 +8,18 @@ torchvision's (`layer1.0.conv1.weight`, `layer1.0.downsample.1.running_var`,
 ...), so reference checkpoints map onto the state_dict one to one. The public
 layout is the JAX package's NHWC; inside, the tensors are NCHW views of NHWC
 memory (channels_last), which cuDNN runs without a relayout.
+
+Compute dtype (`Os2dConfig.compute_dtype`), as the JAX package rounds: each
+convolution casts its input and weight to the compute dtype and outputs in
+it; a frozen BatchNorm computes in fp32 (so with bfloat16 the residual sums
+and the C4 output are fp32). `fold_batchnorm_c4` folds every BatchNorm into
+its convolution for inference; a folded bias is rounded to the compute dtype
+and added in it, so the folded bfloat16 backbone is bfloat16 end to end.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -39,8 +47,10 @@ class Conv2d(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel, device=device))
         self.bias = nn.Parameter(torch.empty(cout, device=device)) if bias else None
 
-    def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+    def forward(self, x, dtype=torch.float32):
+        """The convolution on x and the weight cast to `dtype`, output in it."""
+        return F.conv2d(x.to(dtype), self.weight.to(dtype), self.bias, self.stride,
+                        self.padding)
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -64,10 +74,27 @@ class FrozenBatchNorm2d(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
+    def folding_factor(self):
+        """f = scale * rsqrt(var + eps): BN(y) = y * f + (bias - mean * f)."""
+        return self.weight * torch.rsqrt(self.running_var + BN_EPS)
+
     def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+        scale = self.folding_factor()
         shift = self.bias - self.running_mean * scale
-        return x * scale[:, None, None] + shift[:, None, None]
+        return x.float() * scale[:, None, None] + shift[:, None, None]
+
+
+class FoldedBatchNorm2d(nn.Module):
+    """What remains of a frozen BatchNorm folded into the preceding
+    convolution (`fold_batchnorm_c4`): a bias, `folded_bias`, rounded to the
+    input's dtype and added in it (os2d_tpu/models/resnet.py:59-64)."""
+
+    def __init__(self, folded_bias):
+        super().__init__()
+        self.folded_bias = nn.Parameter(folded_bias, requires_grad=False)
+
+    def forward(self, x):
+        return x + self.folded_bias.to(x.dtype)[:, None, None]
 
 
 class Bottleneck(nn.Module):
@@ -87,11 +114,12 @@ class Bottleneck(nn.Module):
                 FrozenBatchNorm2d(cout, device),
             )
 
-    def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, dtype=torch.float32):
+        out = F.relu(self.bn1(self.conv1(x, dtype)))
+        out = F.relu(self.bn2(self.conv2(out, dtype)))
+        out = self.bn3(self.conv3(out, dtype))
+        identity = x if self.downsample is None else self.downsample[1](
+            self.downsample[0](x, dtype))
         return F.relu(out + identity)
 
 
@@ -108,8 +136,9 @@ class ResNetC4(nn.Module):
     """images [N, H, W, 3] (already normalized) -> C4 features
     [N, ceil(H/16), ceil(W/16), 1024]."""
 
-    def __init__(self, arch: str = "resnet50", device=None):
+    def __init__(self, arch: str = "resnet50", device=None, compute_dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.conv1 = Conv2d(3, 64, 7, 2, 3, device=device)
         self.bn1 = FrozenBatchNorm2d(64, device)
         cin = 64
@@ -131,9 +160,43 @@ class ResNetC4(nn.Module):
             elif isinstance(module, FrozenBatchNorm2d):
                 module.reset_parameters()
 
+    def blocks(self):
+        """The bottlenecks of layer1..3 in order."""
+        return (*self.layer1, *self.layer2, *self.layer3)
+
+    def stem(self, x):
+        """conv1, bn1, ReLU and the 3x3 max pool on NCHW x."""
+        x = F.relu(self.bn1(self.conv1(x, self.compute_dtype)))
+        return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)  # pads with -inf
+
     def forward(self, images_nhwc):
-        x = images_nhwc.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)  # pads with -inf
-        x = self.layer3(self.layer2(self.layer1(x)))
+        x = self.stem(images_nhwc.permute(0, 3, 1, 2))
+        for block in self.blocks():
+            x = block(x, self.compute_dtype)
         return x.permute(0, 2, 3, 1)
+
+
+def _fold_conv_bn(conv: Conv2d, bn: FrozenBatchNorm2d) -> FoldedBatchNorm2d:
+    """Scales conv's output channels by bn's factor f in place and returns
+    the remaining bias - mean * f (os2d_tpu/models/resnet.py:94-109), fp32."""
+    f = bn.folding_factor()
+    conv.weight = nn.Parameter(conv.weight * f[:, None, None, None], requires_grad=False)
+    return FoldedBatchNorm2d(bn.bias - bn.running_mean * f)
+
+
+@torch.no_grad()
+def fold_batchnorm_c4(backbone: ResNetC4) -> ResNetC4:
+    """Inference-only: a copy of `backbone` with every frozen BatchNorm
+    folded into its convolution (os2d_tpu/models/resnet.py:112-144); the
+    caller's module is left as it was. The BatchNorm slots become
+    `FoldedBatchNorm2d` (state_dict key `<bn>.folded_bias`). Folded weights
+    are not for training: the fold freezes the statistics into them."""
+    folded = copy.deepcopy(backbone)
+    folded.bn1 = _fold_conv_bn(folded.conv1, folded.bn1)
+    for block in folded.blocks():
+        for i in (1, 2, 3):
+            setattr(block, f"bn{i}", _fold_conv_bn(getattr(block, f"conv{i}"),
+                                                   getattr(block, f"bn{i}")))
+        if block.downsample is not None:
+            block.downsample[1] = _fold_conv_bn(block.downsample[0], block.downsample[1])
+    return folded

@@ -6,10 +6,18 @@ os2d/modeling/head.py:604-661).
 Conv5x5(128->64)+BN+ReLU -> Conv5x5(64->out), all padded to keep the spatial
 size; the final layer is zero-init with an identity-transform bias. BatchNorm
 runs frozen, as the reference training recipe freezes it.
+
+Compute dtype, as the JAX package rounds: each convolution runs on its input
+and weight cast to the compute dtype WITHOUT its bias, the output is cast to
+fp32 and the fp32 bias added (os2d_tpu/models/transform_net.py:28-39); the
+BatchNorms compute in fp32, so the output is fp32 in every mode.
+`fold_batchnorm_transform_net` folds both BatchNorms into their convolutions
+(conv bias and BN collapse into one bias; the bn modules are gone).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -24,10 +32,22 @@ CHANNELS = (128, 64)
 INPUT_DIM = 15 * 15
 
 
+def _conv_bias(conv: Conv2d, x, dtype, weight=None):
+    """conv(x, w) + b: in fp32 the bias rides in the convolution; in another
+    compute dtype the convolution runs there without it and the fp32 bias is
+    added to its fp32-cast output."""
+    w = conv.weight if weight is None else weight
+    if dtype == torch.float32:
+        return F.conv2d(x, w, conv.bias, padding=conv.padding)
+    out = F.conv2d(x.to(dtype), w.to(dtype), padding=conv.padding)
+    return out.float() + conv.bias[:, None, None]
+
+
 class TransformNet(nn.Module):
-    def __init__(self, output_dim: int = 6, device=None):
+    def __init__(self, output_dim: int = 6, device=None, compute_dtype=torch.float32):
         super().__init__()
         self.output_dim = output_dim
+        self.compute_dtype = compute_dtype
         self.conv0 = Conv2d(INPUT_DIM, CHANNELS[0], KERNEL_SIZES[0], padding=3,
                             bias=True, device=device)
         self.bn0 = FrozenBatchNorm2d(CHANNELS[0], device)
@@ -66,10 +86,31 @@ class TransformNet(nn.Module):
         conv0_channel_perm: the order of the 225 input channels when they are
         not the natural t = tx * 15 + ty (the head's interior-first order);
         conv0's input rows are permuted to match."""
+        dtype = self.compute_dtype
         x = l2_normalize_channels(F.relu(corr_nhwc.permute(0, 3, 1, 2)), eps=1e-6, dim=1)
         w0 = self.conv0.weight
         if conv0_channel_perm is not None:
             w0 = w0[:, conv0_channel_perm]
-        x = F.relu(self.bn0(F.conv2d(x, w0, self.conv0.bias, padding=self.conv0.padding)))
-        x = F.relu(self.bn1(self.conv1(x)))
-        return self.linear(x).permute(0, 2, 3, 1)
+        x = _conv_bias(self.conv0, x, dtype, w0)
+        x = F.relu(x if self.bn0 is None else self.bn0(x))
+        x = _conv_bias(self.conv1, x, dtype)
+        x = F.relu(x if self.bn1 is None else self.bn1(x))
+        return _conv_bias(self.linear, x, dtype).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def fold_batchnorm_transform_net(net: TransformNet) -> TransformNet:
+    """Inference-only: a copy of `net` with both frozen BatchNorms folded into
+    their convolutions, BN(conv(x, W) + b) = conv(x, W * f) + (b * f + bias -
+    mean * f) (os2d_tpu/models/transform_net.py:64-84); `bn0` and `bn1` become
+    None, as JAX's folded params drop their "bn*" keys. The caller's module
+    is left as it was."""
+    folded = copy.deepcopy(net)
+    for conv, bn_name in ((folded.conv0, "bn0"), (folded.conv1, "bn1")):
+        bn = getattr(folded, bn_name)
+        f = bn.folding_factor()
+        conv.weight = nn.Parameter(conv.weight * f[:, None, None, None], requires_grad=False)
+        conv.bias = nn.Parameter(conv.bias * f + bn.bias - bn.running_mean * f,
+                                 requires_grad=False)
+        setattr(folded, bn_name, None)
+    return folded

@@ -4,7 +4,8 @@ dimensions: counterpart of `os2d_tpu/ops/nms.py`.
 Boxes are score-sorted and a greedy keep mask is computed by iterating a
 suppression relation to its fixpoint. The fixpoint equals exact greedy
 (score-descending) NMS; each sweep finalizes at least one more prefix
-position, so it ends in <= K sweeps (typically a handful).
+position, so it ends in <= K sweeps (typically a handful). Each sweep waits
+for the device once (the fixpoint test); `fixpoint_sweeps` counts them.
 """
 
 from __future__ import annotations
@@ -13,9 +14,65 @@ import torch
 
 from ..structures.boxes import box_iou
 
+# sweeps of the fixpoint since import (one host wait each); read and reset by
+# whoever measures them
+fixpoint_sweeps = 0
+
+# IoU pairs per piece of the prior-block suppression: bounds the box_iou
+# temporaries (each [..., rows, block] fp32) to ~256 MB
+PRIOR_IOU_PAIRS = 1 << 26
+
+
+def _dense_fixpoint(sboxes, svalid, iou_threshold: float):
+    """Greedy keep mask of score-sorted boxes [..., K, 4] (svalid [..., K])
+    from the [K, K] suppression relation, iterated to its fixpoint."""
+    global fixpoint_sweeps
+    k = sboxes.shape[-2]
+    iou = box_iou(sboxes, sboxes)
+    higher = torch.ones((k, k), dtype=torch.bool, device=sboxes.device).triu(1)  # i < j
+    suppress = (iou > iou_threshold) & higher & svalid[..., :, None] & svalid[..., None, :]
+    del iou
+    keep = svalid
+    for _ in range(k):
+        new_keep = svalid & ~torch.any(suppress & keep[..., :, None], dim=-2)
+        fixpoint_sweeps += 1
+        done = torch.equal(new_keep, keep)
+        keep = new_keep
+        if done:
+            break
+    return keep
+
+
+def _blocked_keep(sboxes, svalid, iou_threshold: float, block: int):
+    """Greedy keep mask of score-sorted boxes in blocks of `block`, in order
+    (os2d_tpu/ops/nms.py:70-117): the kept boxes of all earlier blocks (all
+    ranked higher) suppress into the block, then the dense fixpoint resolves
+    the block internally. Exactly sequential greedy; the prior suppression
+    runs in pieces of at most PRIOR_IOU_PAIRS IoU pairs over the leading
+    dims."""
+    lead, k = sboxes.shape[:-2], sboxes.shape[-2]
+    k_pad = -(-k // block) * block
+    sboxes = torch.cat([sboxes, sboxes.new_zeros(lead + (k_pad - k, 4))], dim=-2)
+    svalid = torch.cat([svalid, svalid.new_zeros(lead + (k_pad - k,))], dim=-1)
+    keep = torch.zeros_like(svalid)
+    n_lead = max(1, svalid[..., 0].numel())
+    rows = max(block, PRIOR_IOU_PAIRS // (n_lead * block) // block * block)
+    for start in range(0, k_pad, block):
+        boxes_b = sboxes[..., start:start + block, :]
+        suppressed = torch.zeros_like(svalid[..., :block])
+        # keep is False from `start` on, so only the earlier rows can suppress
+        for r in range(0, start, rows):
+            r_end = min(r + rows, start)
+            iou = box_iou(sboxes[..., r:r_end, :], boxes_b)
+            suppressed |= torch.any((iou > iou_threshold) & keep[..., r:r_end, None], dim=-2)
+            del iou
+        valid_b = svalid[..., start:start + block] & ~suppressed
+        keep[..., start:start + block] = _dense_fixpoint(boxes_b, valid_b, iou_threshold)
+    return keep[..., :k]
+
 
 def nms_keep_mask(boxes, scores, valid, iou_threshold: float,
-                  dense_limit: int = 8192):
+                  dense_limit: int = 8192, block: int = 2048):
     """Greedy NMS keep mask over the last K boxes.
 
     Args:
@@ -25,31 +82,21 @@ def nms_keep_mask(boxes, scores, valid, iou_threshold: float,
       iou_threshold: suppress j if IoU(i, j) > threshold for a kept i with
         higher score (strict >, as torchvision).
       dense_limit: the [K, K] suppression relation is materialized up to this
-        K; the block-sequential form above it is not ported yet.
+        K; above it the score-sorted boxes finalize in blocks of `block`
+        (one O(K^2) IoU pass in bounded pieces, a [block, block] fixpoint
+        per block), with the same greedy result.
 
     Returns keep [..., K] bool in the ORIGINAL box order.
     """
     k = boxes.shape[-2]
-    if k > dense_limit:
-        raise NotImplementedError(
-            f"NMS over K={k} > dense_limit={dense_limit} needs the "
-            f"block-sequential path, which is not ported yet")
     masked = torch.where(valid, scores, float("-inf"))
     order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
     sboxes = torch.gather(boxes, -2, order[..., None].expand(order.shape + (4,)))
     svalid = torch.gather(valid, -1, order)
-
-    iou = box_iou(sboxes, sboxes)
-    higher = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)  # i < j
-    suppress = (iou > iou_threshold) & higher & svalid[..., :, None] & svalid[..., None, :]
-
-    keep = svalid
-    for _ in range(k):
-        new_keep = svalid & ~torch.any(suppress & keep[..., :, None], dim=-2)
-        done = torch.equal(new_keep, keep)
-        keep = new_keep
-        if done:
-            break
+    if k <= dense_limit:
+        keep = _dense_fixpoint(sboxes, svalid, iou_threshold)
+    else:
+        keep = _blocked_keep(sboxes, svalid, iou_threshold, block)
     return torch.zeros_like(keep).scatter(-1, order, keep)
 
 

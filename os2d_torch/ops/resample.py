@@ -55,9 +55,12 @@ def check_contract(corr, px, py, mask_t):
     for name, x in (("px", px), ("py", py), ("mask_t", mask_t)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # the kernels index corr as ((bc * H + y) * W + x) * row + t; the stride
+    # of a dimension of size 1 is never used (a permuted single-class corr
+    # keeps an odd one)
     row = corr.stride(3)
-    if corr.stride(4) != 1 or row < t or corr.stride(2) != w * row or \
-            corr.stride(1) != h * w * row or (b > 1 and corr.stride(0) != c * h * w * row):
+    outer = zip((b, c, h), corr.stride()[:3], (c * h * w * row, h * w * row, w * row))
+    if corr.stride(4) != 1 or row < t or any(n > 1 and s != e for n, s, e in outer):
         raise ValueError(
             f"corr needs last-dim stride 1 and uniform row strides, got "
             f"strides {corr.stride()} for shape {tuple(corr.shape)}")

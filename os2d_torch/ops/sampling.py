@@ -30,7 +30,9 @@ def linspace(start: float, stop: float, num: int, device=None):
 
 
 def _interp_matrix(out_size: int, in_size: int, device=None, dtype=torch.float32):
-    """[out, in] bilinear interpolation matrix with align_corners=True."""
+    """[out, in] bilinear interpolation matrix with align_corners=True, in
+    `dtype` (the input's, as JAX builds it): positions and weights in fp32,
+    each weight rounded to `dtype` and added into the matrix in it."""
     if in_size == 1:
         return torch.ones((out_size, 1), dtype=dtype, device=device)
     if out_size == 1:
@@ -38,15 +40,15 @@ def _interp_matrix(out_size: int, in_size: int, device=None, dtype=torch.float32
         m = torch.zeros((1, in_size), dtype=dtype, device=device)
         m[0, 0] = 1.0
         return m
-    pos = linspace(0.0, in_size - 1.0, out_size, device=device).to(dtype)
+    pos = linspace(0.0, in_size - 1.0, out_size, device=device)
     i0 = torch.floor(pos).clamp(0, in_size - 1).long()
     i1 = (i0 + 1).clamp(0, in_size - 1)
-    w1 = pos - i0.to(dtype)
+    w1 = pos - i0.float()
     w0 = 1.0 - w1
     rows = torch.arange(out_size, device=device)
     m = torch.zeros((out_size, in_size), dtype=dtype, device=device)
-    m.index_put_((rows, i0), w0, accumulate=True)
-    m.index_put_((rows, i1), w1, accumulate=True)
+    m.index_put_((rows, i0), w0.to(dtype), accumulate=True)
+    m.index_put_((rows, i1), w1.to(dtype), accumulate=True)
     return m
 
 

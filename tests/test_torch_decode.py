@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from os2d_tpu.engine import decode as jdecode
@@ -48,7 +49,7 @@ def _decode_both(locs, clss, **kw):
     return got, want
 
 
-def _assert_same(got, want, lead=()):
+def _assert_same(got, want):
     np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(want["valid"]))
     np.testing.assert_array_equal(got["scores"].numpy(), np.asarray(want["scores"]))
     np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=1e-5,
@@ -96,8 +97,75 @@ def test_nms_matches_jax(k, top_k):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_nms_above_dense_limit_is_not_ported():
-    boxes = torch.zeros(10, 4)
-    with pytest.raises(NotImplementedError, match="block-sequential"):
-        tnms.nms_keep_mask(boxes, torch.zeros(10), torch.ones(10, dtype=torch.bool), 0.3,
-                           dense_limit=8)
+def _crowded_boxes(rng, lead, k, n_invalid=0):
+    """k boxes of 16-64 px in a 480x480 field (long suppression chains that
+    cross the blocks), scores on a 1/64 grid (many exact ties), n_invalid of
+    them invalid."""
+    xy = rng.uniform(0, 480, lead + (k, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(16, 64, lead + (k, 2))], -1).astype(np.float32)
+    scores = (np.round(rng.uniform(0, 1, lead + (k,)) * 64) / 64).astype(np.float32)
+    valid = np.ones(lead + (k,), bool)
+    for idx in np.ndindex(*lead):
+        valid[idx][rng.choice(k, n_invalid, replace=False)] = False
+    return boxes, scores, valid
+
+
+# (leading dims, K, invalid boxes, dense_limit, block): just above the
+# limit (a 1-box last block), exactly 3 blocks, ~10k with the last block all
+# invalid, leading dims batched, many small blocks
+BLOCKED_CASES = {
+    "k8193": ((), 8193, 0, 8192, 2048),
+    "k3x2048": ((), 3 * 2048, 0, 2048, 2048),
+    "k10000_invalid_block": ((), 10000, 2100, 8192, 2048),
+    "lead2x1_k8200": ((2, 1), 8200, 30, 8192, 2048),
+    "k700_blocks64": ((3,), 700, 40, 100, 64),
+}
+
+
+@pytest.mark.parametrize("case", BLOCKED_CASES)
+def test_nms_blocked_matches_jax(case):
+    """Above dense_limit the block-sequential path keeps exactly JAX's boxes."""
+    lead, k, n_invalid, dense_limit, block = BLOCKED_CASES[case]
+    boxes, scores, valid = _crowded_boxes(np.random.RandomState(k), lead, k, n_invalid)
+    jfn = lambda b, s, v: jnms.nms_keep_mask(b, s, v, 0.3, dense_limit=dense_limit,
+                                             block=block)
+    for _ in lead:
+        jfn = jax.vmap(jfn)
+    want = np.asarray(jfn(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid)))
+    got = tnms.nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(scores),
+                             torch.from_numpy(valid), 0.3, dense_limit=dense_limit,
+                             block=block).numpy()
+    np.testing.assert_array_equal(got, want)
+    # suppression did happen, and not of everything
+    assert 0 < got.sum() < valid.sum()
+
+
+def test_nms_blocked_prior_pieces(monkeypatch):
+    """The prior suppression in several pieces keeps what one piece keeps."""
+    boxes, scores, valid = (torch.from_numpy(x) for x in
+                            _crowded_boxes(np.random.RandomState(0), (2,), 600, 20))
+    whole = tnms.nms_keep_mask(boxes, scores, valid, 0.3, dense_limit=64, block=64)
+    monkeypatch.setattr(tnms, "PRIOR_IOU_PAIRS", 2 * 64 * 64)  # one block of rows a piece
+    np.testing.assert_array_equal(
+        tnms.nms_keep_mask(boxes, scores, valid, 0.3, dense_limit=64, block=64).numpy(),
+        whole.numpy())
+
+
+def test_decode_across_classes_above_dense_limit_matches_jax():
+    """nms_across_classes over G * top_k = 33 * 256 = 8448 > 8192 boxes (the
+    blocked path): one 320x320 level, pre_top_k 1024, top_k 256, JAX's
+    detections exactly."""
+    rng = np.random.default_rng(0)
+    g, a = 33, 20 * 20
+    loc = rng.normal(0, 0.1, (g, 4, a)).astype(np.float32)
+    cls = rng.uniform(-1, 1, (g, a)).astype(np.float32)
+    kw = dict(nms_iou_threshold=0.3, pre_top_k=1024, top_k=256, nms_across_classes=True)
+    # one compiled program (op by op, XLA compiles for ~10 s)
+    want = jax.jit(lambda lc, cl: jdecode.decode_pyramid(
+        [lc], [cl], [JSize(w=320, h=320)], [(1.0, 1.0)], **kw))(jnp.asarray(loc),
+                                                                jnp.asarray(cls))
+    got = tdecode.decode_pyramid([torch.from_numpy(loc)], [torch.from_numpy(cls)],
+                                 [TSize(w=320, h=320)], [(1.0, 1.0)], **kw)
+    assert tuple(got["valid"].shape) == (g, 256)
+    assert 0 < int(got["valid"].sum()) < int(np.asarray(want["scores"] > -np.inf).sum())
+    _assert_same(got, want)

@@ -172,7 +172,6 @@ def test_evaluate_rejects_unported_options(loaders):
                        ("visualization.eval.show_detections", True),
                        ("tpu.device_side_pyramid", False),
                        ("tpu.quantize_class_feats", True),
-                       ("tpu.fold_bn", True),
                        ("tpu.upload_pixel_format", "yuv420")):
         cfg = get_default_cfg()
         cfg.merge_from_list([key, str(value)])

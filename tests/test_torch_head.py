@@ -106,3 +106,23 @@ def test_interior_permutation_and_mask_match_jax():
     np.testing.assert_array_equal(thead.make_class_pool_mask(3).numpy(),
                                   np.asarray(jhead.make_class_pool_mask(3)))
     assert thead.ANCHOR_BOX == jhead.ANCHOR_BOX and thead.ANCHOR_STRIDE == jhead.ANCHOR_STRIDE
+
+
+def test_head_forward_single_class_matches_jax():
+    """One class: the permuted corr keeps an odd stride on its size-1 class
+    dimension, which the resample's contract accepts."""
+    rng = np.random.RandomState(5)
+    fm = rng.randn(1, H, W, F).astype(np.float32)
+    class_map = rng.randn(15, 15, F).astype(np.float32)
+    params = _tn_params(6, seed=6)
+    want = jhead.head_forward(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(fm),
+                              jhead.build_class_head([jnp.asarray(class_map)]),
+                              resample_precision="highest")
+    net = TransformNet(6, device="cpu")
+    net.load_state_dict(transform_net_state_dict_from_jax(params))
+    with torch.no_grad():
+        got = thead.head_forward(net, torch.from_numpy(fm),
+                                 thead.build_class_head([torch.from_numpy(class_map)]),
+                                 resample_precision="highest")
+    for key in ("loc", "cls"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=ATOL, err_msg=key)

@@ -1,6 +1,8 @@
 """Import and fallback hygiene of the PyTorch port.
 
-- No file of os2d_torch, nor chip_smoke.py, imports jax, jaxlib or os2d_tpu.
+- No file of os2d_torch, nor chip_smoke.py, nor a tool of the port
+  (tools/*torch*.py, the mAP gate's twin among them) imports jax, jaxlib or
+  os2d_tpu.
 - The kernel wrappers (the fp32 gather, the bf16 hat resample and the
   resample's backward) have no `except` that could turn a failed kernel into
   a silent CPU fallback.
@@ -14,7 +16,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "os2d_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "os2d_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*torch*.py")))
 FORBIDDEN = ("jax", "jaxlib", "os2d_tpu")
 
 

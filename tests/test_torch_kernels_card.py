@@ -228,3 +228,122 @@ def test_train_function_launches_the_backward_kernel(precision, cuda_gen):
                                        px.shape[2])
     for got, w in zip((corr.grad, px.grad, py.grad), want):
         torch.testing.assert_close(got, w, rtol=RTOL, atol=ATOL)
+
+
+# ---- the numeric modes and the blocked NMS on the card (chip_smoke.py's
+# phases numeric_modes and nms_blocked, at small sizes) ----
+BF16_RULE = 0.25  # each backbone convolution on the CPU's own input
+# stages of several bf16 convolutions (a bottleneck, the head through the
+# TransformNet): see chip_smoke.BF16_STAGE_RULE (measured up to 0.36 and
+# 0.47 here)
+BF16_STAGE_RULE = 0.6
+
+
+def _crowded_boxes(lead, k, gen):
+    """k boxes of 16-64 px in a 480x480 field (on the CPU), scores on a
+    1/64 grid (exact ties), 1% invalid."""
+    xy = torch.rand(lead + (k, 2), generator=gen) * 480
+    boxes = torch.cat([xy, xy + 16 + torch.rand(lead + (k, 2), generator=gen) * 48], -1)
+    scores = torch.round(torch.rand(lead + (k,), generator=gen) * 64) / 64
+    return boxes, scores, torch.rand(lead + (k,), generator=gen) > 0.01
+
+
+@pytest.mark.parametrize("lead,k,dense_limit,block", [
+    ((), 8193, 8192, 2048), ((2,), 10000, 8192, 2048), ((3,), 700, 100, 64)])
+def test_nms_blocked_card_matches_cpu(lead, k, dense_limit, block, cuda_gen):
+    """Above dense_limit, the same candidates keep the same boxes on the card
+    as on the CPU (each IoU is one rounded op per step on both)."""
+    from os2d_torch.ops import nms
+
+    args = _crowded_boxes(lead, k, torch.Generator().manual_seed(k))
+    want = nms.nms_keep_mask(*args, 0.3, dense_limit=dense_limit, block=block)
+    got = nms.nms_keep_mask(*(x.cuda() for x in args), 0.3, dense_limit=dense_limit,
+                            block=block)
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(args[2].sum())
+
+
+def _rms(x):
+    return float(x.double().pow(2).mean().sqrt())
+
+
+def _bf16_rule(got, want16, want32):
+    assert got.dtype == want16.dtype
+    scale = _rms(want16.float() - want32.float())
+    assert scale > 0, "bf16 and fp32 agree exactly: the rule holds nothing"
+    return _rms(got.cpu().float() - want16.float()) / scale
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_bf16_modes_card_match_cpu(folded, cuda_gen):
+    """bf16 compute, folded and unfolded: the stem, every bottleneck and the
+    head on the card against the CPU on the CPU's own inputs, by the bf16
+    rule (RMS(card - cpu_bf16) <= 0.25 RMS(cpu_bf16 - cpu_fp32) for each
+    convolution, 0.6 for the stages); the head launches the hat kernel
+    once."""
+    from os2d_torch.models import Os2dConfig, Os2dModel, head
+    from os2d_torch.models.os2d import fold_inference_params
+    from os2d_torch.models.resnet import Conv2d
+
+    state = Os2dModel(Os2dConfig(), device="cpu").state_dict()
+    # a non-zero final TransformNet layer: theta, loc and corners vary
+    state["transform_net.linear.weight"] = 0.02 * torch.randn(
+        state["transform_net.linear.weight"].shape, generator=torch.Generator().manual_seed(1))
+
+    def build(dtype, device):
+        m = Os2dModel(Os2dConfig(compute_dtype=dtype), device=device)
+        m.load_state_dict({k: v.to(device) for k, v in state.items()})
+        return fold_inference_params(m) if folded else m
+
+    card, cpu16 = build("bfloat16", "cuda"), build("bfloat16", "cpu")
+    cpu32 = build("float32", "cpu")
+    x = torch.randn(2, 3, 128, 160, generator=torch.Generator().manual_seed(0))
+    ratios, conv_ratios = {}, {}
+    with torch.no_grad():
+        convs = [{n: c for n, c in m.backbone.named_modules() if isinstance(c, Conv2d)}
+                 for m in (card, cpu16, cpu32)]
+        seen = []
+        hooks = [c.register_forward_hook(lambda mod, args, out, n=n: seen.append((n, args[0], out)))
+                 for n, c in convs[1].items()]
+        cpu16.backbone(x.permute(0, 2, 3, 1))
+        for h in hooks:
+            h.remove()
+        for n, xc, out16 in seen:
+            conv_ratios[n] = _bf16_rule(convs[0][n](xc.cuda(), torch.bfloat16), out16,
+                                        convs[2][n](xc.float(), torch.float32))
+        want16, want32 = cpu16.backbone.stem(x), cpu32.backbone.stem(x)
+        ratios["stem"] = _bf16_rule(card.backbone.stem(x.cuda()), want16, want32)
+        for i, (bc, b16, b32) in enumerate(zip(card.backbone.blocks(), cpu16.backbone.blocks(),
+                                              cpu32.backbone.blocks())):
+            x = want16
+            want16, want32 = b16(x, torch.bfloat16), b32(x.float(), torch.float32)
+            ratios[f"block{i}"] = _bf16_rule(bc(x.cuda(), torch.bfloat16), want16, want32)
+        fm = want16.permute(0, 2, 3, 1)
+        bank = head.build_class_head(fm)
+        assert bank.class_feats.dtype == fm.dtype == (torch.bfloat16 if folded else torch.float32)
+        out16 = cpu16.apply_head(fm, bank)
+        out32 = cpu32.apply_head(fm.float(), head.ClassHead(bank.class_feats.float(),
+                                                            bank.pool_mask.float()))
+        before = hat_resample.KERNEL.launches
+        got = card.apply_head(fm.cuda(), head.ClassHead(bank.class_feats.cuda(),
+                                                        bank.pool_mask.cuda()))
+        torch.cuda.synchronize()
+        assert hat_resample.KERNEL.launches == before + 1
+        for key in ("cls", "loc", "corners"):
+            ratios[key] = _bf16_rule(got[key], out16[key], out32[key])
+    assert len(conv_ratios) == len(convs[1]) == 43  # ResNet50-C4's convolutions
+    assert max(conv_ratios.values()) <= BF16_RULE, conv_ratios
+    assert max(ratios.values()) <= BF16_STAGE_RULE, ratios
+
+
+def test_correlation_gemm_bf16_on_card(cuda_gen):
+    """The card's bf16 GEMM with an fp32 output agrees with the CPU's
+    upcast GEMM to fp32 summation order, not to bf16 rounding."""
+    from os2d_torch.models.head import correlation_gemm
+
+    a = torch.randn(300, 1024, generator=cuda_gen, device="cuda")
+    b = torch.randn(225, 1024, generator=cuda_gen, device="cuda")
+    got = correlation_gemm(a, b, torch.bfloat16)
+    want = correlation_gemm(a.cpu(), b.cpu(), torch.bfloat16)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
