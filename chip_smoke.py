@@ -109,6 +109,32 @@ Phases, each printing one JSON line:
               bfloat16, card against CPU: loss and gradient norm within 3x
               |CPU bf16 - CPU fp32| or phase 9's rtol, whichever is larger;
               one launch of each kernel.
+ 16. mining   engine.mining.mine_hard_patches at get_default_cfg()'s mining
+              recipe (2 random pyramid scales, 200 negative classes: all 16
+              here, 10 patches per image, NMS IoU 0.5) with Os2dConfig() at
+              the default tier on phase 10's planted train set: the card
+              against the CPU from the same weights and seeds on 2 images
+              (image ids, record order, roles, levels, labels, anchor
+              indices, crop and anchor boxes exactly; losses and scores
+              within rtol 2e-3, atol 1e-6), then all 8 images on the card:
+              s/image, and the hat kernel once per (batch, level, class
+              chunk).
+ 17. train_mining  trainval_loop at the default recipe with do_mining,
+              mine_hard_patches_iter 2, TRAIN_STEPS steps and
+              cfg.tpu.device_class_cache "required": mining at iterations 0
+              and 2, every batch cropped at mined records and holding their
+              labels, class images from the cache, finite losses, one hat
+              and one backward launch per step.
+ 18. class_cache  the device class cache of the default recipe: the
+              stack's MB; its class tensor on the card equal to the host
+              path's on unflipped batches for all six resample methods and
+              to its CPU gather for every method and flip; TrainStep s/step
+              (upload and step) and the batch build, with the cache and with
+              host-built class images in turns in one process.
+ 19. evaluate_host_pyramid  evaluate() with cfg.tpu.device_side_pyramid
+              False over phase 4's planted set at two levels: mAP@0.50 1.0
+              on the card and on the CPU, the hat kernel once per (image,
+              level).
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
 entry point that enqueues a memset, a scatter kernel and a transpose
 kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
@@ -117,9 +143,9 @@ kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
 integer and border coordinates, collapsed planes (every sample of a plane
 on one point) and the training shape (B=4, C=16, 38x38, T=121 of 225) on
 uniform, near-identity, exact-identity and collapsed inputs.
-Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-15
-(each dispatch of phase 14) and read just after it; a phase whose kernel was
-not launched fails. Then one
+Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-19
+(each dispatch of phase 14) and read just after it, and around each step of
+phase 17; a phase whose kernel was not launched fails. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
 exits 1.
@@ -185,6 +211,17 @@ FIRST_STEP_MARGIN_POS = 1.0
 # dpy (2 products, then 4 of 2 products and 2 sums), the 4 dcorr products
 # (2 each) and the two cotangent products
 BACKWARD_FLOPS_PER_SAMPLE = 90
+# phases 16-18: mining card against CPU on this many images (its CPU side
+# scores them at two random scales up to 1.6 x 640 px), losses and scores
+# within TRAIN_CPU_RTOL and MINING_ATOL (the hinge losses are 0 at many
+# anchors); trainval_loop mining every MINE_ITER iterations; the class
+# cache held against the host path on up to CACHE_CHECK_BATCHES batches and
+# timed in CACHE_TIMING_ROUNDS rounds of host, cache, cache, host
+MINING_CPU_IMAGES = 2
+MINING_ATOL = 1e-6
+MINE_ITER = 2
+CACHE_CHECK_BATCHES = 8
+CACHE_TIMING_ROUNDS = 4
 # the numeric modes of phases 13-14: (name, compute_dtype, BN folded)
 NUMERIC_MODES = (("fp32", "float32", False), ("fp32_fold", "float32", True),
                  ("bf16", "bfloat16", False), ("bf16_fold", "bfloat16", True))
@@ -433,6 +470,35 @@ def detections_agree(got, want, box_atol=1e-2):
     return True
 
 
+def mined_records_disagree(got, want, rtol, atol):
+    """(the first disagreement between two mining results or None, the
+    largest |difference| of loss, loss_loc and score): image ids, the order
+    of the records, roles, levels, labels, anchor indices and crop and
+    anchor boxes exactly; loss, loss_loc and score within rtol and atol."""
+    import numpy as np
+
+    errs = {"loss": 0.0, "loss_loc": 0.0, "score": 0.0}
+    if list(got) != list(want):
+        return f"image ids {list(got)} against {list(want)}", errs
+    for image_id, w_recs in want.items():
+        g_recs = got[image_id]
+        if len(g_recs) != len(w_recs):
+            return f"image {image_id}: {len(g_recs)} records against {len(w_recs)}", errs
+        for i, (g, w) in enumerate(zip(g_recs, w_recs)):
+            where = f"image {image_id} record {i}"
+            for key in ("role", "pyramid_level", "label_local", "label_global", "anchor_index"):
+                if g[key] != w[key]:
+                    return f"{where}: {key} {g[key]} against {w[key]}", errs
+            for key in ("crop_position_xyxy", "anchor_position_xyxy"):
+                if not np.array_equal(g[key], w[key]):
+                    return f"{where}: {key} {g[key]} against {w[key]}", errs
+            for key in errs:
+                errs[key] = max(errs[key], abs(g[key] - w[key]))
+                if not abs(g[key] - w[key]) <= atol + rtol * abs(w[key]):
+                    return f"{where}: {key} {g[key]} against {w[key]}", errs
+    return None, errs
+
+
 def main(argv):
     import torch
 
@@ -460,6 +526,9 @@ def main(argv):
     from os2d_torch.data.dataloader import build_train_dataloader_from_config
     from os2d_torch.engine.objective import ObjectiveConfig
     from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.data.class_cache import DeviceClassCache
+    from os2d_torch.engine import train as train_module
+    from os2d_torch.engine.mining import mine_hard_patches
     from os2d_torch.engine.train import (
         TrainStep,
         prepare_batch_arrays,
@@ -927,6 +996,7 @@ def main(argv):
         train_loader, _ = build_train_dataloader_from_config(train_cfg, train_set, seed=0)
         eval_loader = DataloaderOneShotDetection(train_set.copy_subset(TRAIN_EVAL_IMAGES),
                                                  batch_size=1, pyramid_scales_eval=[1.0])
+        mine_subset = train_set.copy_subset(MINING_CPU_IMAGES)  # for phase 16
     train_batch = train_loader.get_batch(0)
 
     # 9. the first step on the card and on the CPU from the same weights, at
@@ -1356,6 +1426,219 @@ def main(argv):
                              f"{first16['cpu'][k]} on the CPU (fp32 {first['cpu'][k]})")
     require_launches("train_first_step_bf16", first16_counts, "hat_resample_correlation", 1)
     require_launches("train_first_step_bf16", first16_counts, "resample_correlation_backward", 1)
+
+    # ---- 16. hard-patch mining at the default recipe ----
+    # get_default_cfg()'s mining recipe (2 random pyramid scales, 200
+    # negative classes: all of them here, 10 patches per image, NMS IoU 0.5)
+    # on the planted train set at the default tier: the card against the CPU
+    # from the same weights and seeds on MINING_CPU_IMAGES images, then every
+    # image on the card, with the hat kernel once per (batch, level, chunk)
+    mine_cfg = get_default_cfg()
+    mining_recipe = {k: mine_cfg.train.mining[k] for k in (
+        "num_random_pyramid_scales", "num_random_negative_classes",
+        "num_hard_patches_per_image", "nms_iou_threshold_in_mining")}
+    mine_model = Os2dModel(Os2dConfig(), seed=2)
+    cpu_mine_model = mode_model("float32", False, "cpu", mine_model.state_dict())
+    mined = {}
+    for dev, m in (("cuda", mine_model), ("cpu", cpu_mine_model)):
+        mine_loader, _ = build_train_dataloader_from_config(mine_cfg, mine_subset, seed=0)
+        t0 = time.perf_counter()
+        mined[dev] = mine_hard_patches(mine_loader, m, mine_cfg, objective)
+        mined[dev + "_s"] = time.perf_counter() - t0
+    del cpu_mine_model
+    mine_disagree, mine_err = mined_records_disagree(mined["cuda"], mined["cpu"], TRAIN_CPU_RTOL,
+                                                     MINING_ATOL)
+    mine_loader, _ = build_train_dataloader_from_config(mine_cfg, train_set, seed=0)
+    mine_batches = -(-TRAIN_IMAGES // int(mine_cfg.eval.batch_size))
+    mine_expected = (mine_batches * int(mine_cfg.train.mining.num_random_pyramid_scales)
+                     * -(-TRAIN_CLASSES // int(mine_cfg.tpu.eval_class_chunk)))
+    reset_counts()
+    t0 = time.perf_counter()
+    mined_all = mine_hard_patches(mine_loader, mine_model, mine_cfg, objective)
+    torch.cuda.synchronize()
+    mine_s = time.perf_counter() - t0
+    mine_counts = read_counts()
+    roles = {}
+    for recs in mined_all.values():
+        for r in recs:
+            roles[r["role"]] = roles.get(r["role"], 0) + 1
+    mine_finite = all(np.isfinite([r["loss"], r["loss_loc"], r["score"]]).all()
+                      and np.isfinite(r["transform_corners"]).all()
+                      for recs in mined_all.values() for r in recs)
+    emit({"phase": "mining", "recipe": mining_recipe, "classes": TRAIN_CLASSES,
+          "cpu_images": MINING_CPU_IMAGES,
+          "cuda_matches_cpu": mine_disagree is None, "disagreement": mine_disagree,
+          "max_abs_err": mine_err, "rtol": TRAIN_CPU_RTOL, "atol": MINING_ATOL,
+          "cuda_s_subset": mined["cuda_s"], "cpu_s_subset": mined["cpu_s"],
+          "images": len(mined_all), "seconds": mine_s, "s_per_image": mine_s / len(mined_all),
+          "records_by_role": roles, "launches": mine_counts,
+          "expected_hat_launches": mine_expected})
+    if mine_disagree is not None:
+        raise SystemExit(f"mining: the card's records differ from the CPU's: {mine_disagree}")
+    if sorted(mined_all) != sorted(train_set.image_ids) or not {"neg", "pos"} <= set(roles):
+        raise SystemExit(f"mining: records for {sorted(mined_all)}, roles {roles}")
+    if not mine_finite:
+        raise SystemExit("mining: non-finite losses, scores or corners")
+    require_launches("mining", mine_counts, "hat_resample_correlation", mine_expected)
+
+    # ---- 17. trainval_loop with mining and the device class cache ----
+    tm_cfg = get_default_cfg()
+    tm_cfg.train.optim.max_iter = TRAIN_STEPS
+    tm_cfg.eval.iter = TRAIN_STEPS
+    tm_cfg.train.mining.do_mining = True
+    tm_cfg.train.mining.mine_hard_patches_iter = MINE_ITER
+    tm_cfg.tpu.device_class_cache = "required"
+    tm_loader, _ = build_train_dataloader_from_config(tm_cfg, train_set, seed=0)
+    tm_opt = create_optimizer(tm_cfg.train.optim, trainable_parameters(mine_model, tm_cfg.train))
+    mined_at, steps, batch_checks, replayed = [], [], [], []
+    orig_mine, orig_one = train_module.mine_hard_patches, train_module.train_one_batch
+    orig_prepare, orig_transform = tm_loader._prepare_batch, tm_loader._transform_image
+
+    def mine_counted(*args, **kwargs):
+        mined_at.append(len(steps))
+        return orig_mine(*args, **kwargs)
+
+    def one_counted(batch, *args, **kwargs):
+        before = read_counts()
+        meters = orig_one(batch, *args, **kwargs)
+        after = read_counts()
+        steps.append({"loss": meters["loss"], "grad_norm": meters["grad_norm"],
+                      "class_images_from_host": batch["class_images"] is not None,
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return meters
+
+    def transform_replayed(image_id, boxes, mined_data=None, **kwargs):
+        if mined_data is not None:
+            replayed.append(mined_data["label_global"])
+        return orig_transform(image_id, boxes, mined_data=mined_data, **kwargs)
+
+    def prepare_checked(image_ids):
+        replayed.clear()
+        batch = orig_prepare(image_ids)
+        batch_checks.append({"mined_labels": list(replayed),
+                             "held": set(replayed) <= set(batch["class_ids"])})
+        return batch
+
+    train_module.mine_hard_patches, train_module.train_one_batch = mine_counted, one_counted
+    tm_loader._prepare_batch, tm_loader._transform_image = prepare_checked, transform_replayed
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        tm_log, _ = trainval_loop(tm_loader, mine_model, tm_cfg, objective, tm_opt)
+    finally:
+        train_module.mine_hard_patches, train_module.train_one_batch = orig_mine, orig_one
+    torch.cuda.synchronize()
+    tm_s = time.perf_counter() - t0
+    tm_counts = read_counts()
+    emit({"phase": "train_mining", "steps": TRAIN_STEPS, "mine_hard_patches_iter": MINE_ITER,
+          "device_class_cache": "required", "mined_at_iterations": mined_at,
+          "steps_log": steps, "batches": batch_checks, "seconds": tm_s, "launches": tm_counts})
+    if mined_at != list(range(0, TRAIN_STEPS, MINE_ITER)):
+        raise SystemExit(f"train_mining: mined at iterations {mined_at}")
+    if tm_loader.device_class_cache is None or any(s["class_images_from_host"] for s in steps):
+        raise SystemExit("train_mining: the device class cache did not serve the class images")
+    if len(batch_checks) != TRAIN_STEPS or not all(
+            len(b["mined_labels"]) == tm_cfg.train.batch_size and b["held"]
+            for b in batch_checks):
+        raise SystemExit(f"train_mining: batches without their mined labels: {batch_checks}")
+    if len(steps) != TRAIN_STEPS or not all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                                            for s in steps):
+        raise SystemExit(f"train_mining: steps {steps}")
+    for s_ in steps:
+        require_launches("train_mining", s_["launches"], "hat_resample_correlation", 1)
+        require_launches("train_mining", s_["launches"], "resample_correlation_backward", 1)
+
+    # ---- 18. the device class cache: the stack, its gather, s/step ----
+    cc_cfg = get_default_cfg()
+    cc_loaders = {}
+    for name in ("host", "cache"):
+        cc_loaders[name], _ = build_train_dataloader_from_config(cc_cfg, train_set, seed=0)
+    cache = DeviceClassCache.build(cc_loaders["cache"], "cuda",
+                                   budget_mb=int(cc_cfg.tpu.device_class_cache_budget_mb))
+    cc_loaders["cache"].attach_device_class_cache(cache)
+    cpu_cache = DeviceClassCache(cache.class_ids, cache.index_of, cache.sizes, cache.stack.cpu())
+    flips_equal = all(
+        torch.equal(cache.gather(cache.class_ids, [m] * TRAIN_CLASSES, hf, vf, TRAIN_CLASSES).cpu(),
+                    cpu_cache.gather(cache.class_ids, [m] * TRAIN_CLASSES, hf, vf, TRAIN_CLASSES))
+        for m in range(6) for hf in (False, True) for vf in (False, True))
+    methods_seen, cc_equal, cc_batches = set(), True, 0
+    while len(methods_seen) < 6 and cc_batches < CACHE_CHECK_BATCHES:
+        hb, cb = (cc_loaders[n].get_batch(cc_batches % len(train_loader)) for n in ("host", "cache"))
+        g = cb["class_gather"]
+        ha, h_pad = prepare_batch_arrays(hb, "cuda")
+        ca, c_pad = prepare_batch_arrays(cb, "cuda")
+        n_real = len(hb["class_ids"])
+        cc_equal &= (hb["class_ids"] == cb["class_ids"] and h_pad == c_pad
+                     and not (g["hflip"] or g["vflip"])
+                     and np.array_equal(hb["images"], cb["images"])
+                     and torch.equal(ha["class_images"][:n_real], ca["class_images"][:n_real])
+                     and torch.equal(ha["class_valid"], ca["class_valid"]))
+        methods_seen.update(g["method_idx"])
+        cc_batches += 1
+    cc_step = TrainStep(train_model, objective, train_opt, train_cfg.train)
+    cc_times = {"host": [], "cache": []}
+    cc_batch_s = {"host": [], "cache": []}
+    reset_counts()
+    for i, name in enumerate(["host", "cache", "cache", "host"] * CACHE_TIMING_ROUNDS):
+        t0 = time.perf_counter()
+        batch = cc_loaders[name].get_batch(i % len(train_loader))
+        cc_batch_s[name].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        metrics = cc_step(*prepare_batch_arrays(batch, "cuda"))
+        torch.cuda.synchronize()
+        cc_times[name].append(time.perf_counter() - t0)
+        if not np.isfinite(metrics["loss"]):
+            raise SystemExit(f"class_cache: non-finite loss {metrics}")
+    cc_counts = read_counts()
+    emit({"phase": "class_cache", "classes": TRAIN_CLASSES, "methods": 6,
+          "stack_shape": list(cache.stack.shape), "stack_mb": cache.nbytes / 2**20,
+          "unflipped_batches_equal_host_path": cc_equal, "batches_checked": cc_batches,
+          "methods_seen": sorted(methods_seen), "gather_card_equals_cpu_all_flips": flips_equal,
+          "order": "host, cache, cache, host, ...", "step_s": cc_times,
+          "median_step_s": {k: float(np.median(v)) for k, v in cc_times.items()},
+          "step_s_spread": {k: [min(v), max(v)] for k, v in cc_times.items()},
+          "median_batch_build_s": {k: float(np.median(v)) for k, v in cc_batch_s.items()},
+          "launches": cc_counts})
+    if not (cc_equal and flips_equal and len(methods_seen) == 6):
+        raise SystemExit(f"class_cache: gathered class images differ (host path equal: "
+                         f"{cc_equal}, methods {sorted(methods_seen)}, flips equal: {flips_equal})")
+    require_launches("class_cache", cc_counts, "hat_resample_correlation", 4 * CACHE_TIMING_ROUNDS)
+    require_launches("class_cache", cc_counts, "resample_correlation_backward",
+                     4 * CACHE_TIMING_ROUNDS)
+    del cache, cpu_cache, cc_loaders, cc_step
+
+    # ---- 19. evaluate() through the host-built pyramid ----
+    hp_cfg = get_default_cfg()
+    hp_cfg.eval.mAP_iou_thresholds = [0.5]
+    hp_cfg.tpu.device_side_pyramid = False
+    hp_cfg.tpu.eval_pre_top_k = 256
+    hp_cfg.tpu.eval_top_k = 32
+    cpu_model = mode_model("float32", False, "cpu")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        df = write_planted_dataset(root)
+        dataset = DatasetOneShotDetection(
+            df, gt_path=os.path.join(root, "classes", "images"),
+            image_path=os.path.join(root, "src"), name="planted", image_size=640,
+            eval_scale=640, cache_images=True)
+        loader = DataloaderOneShotDetection(dataset, batch_size=1,
+                                            pyramid_scales_eval=EVAL_PYRAMID)
+        reset_counts()
+        t0 = time.perf_counter()
+        hp_results = evaluate(loader, model, hp_cfg)
+        torch.cuda.synchronize()
+        hp_s = time.perf_counter() - t0
+        hp_counts = read_counts()
+        hp_cpu_results = evaluate(loader, cpu_model, hp_cfg)
+    del cpu_model
+    hp_expected = len(PLANTED) * len(EVAL_PYRAMID)  # batch 1, one class chunk
+    emit({"phase": "evaluate_host_pyramid", "levels": EVAL_PYRAMID,
+          "mAP@0.50": hp_results["mAP@0.50"], "recall@0.50": hp_results["recall@0.50"],
+          "cpu_mAP@0.50": hp_cpu_results["mAP@0.50"], "seconds": hp_s,
+          "launches": hp_counts, "expected_hat_launches": hp_expected})
+    if not (hp_results["mAP@0.50"] == 1.0 == hp_cpu_results["mAP@0.50"]):
+        raise SystemExit(f"evaluate_host_pyramid: mAP@0.50 {hp_results['mAP@0.50']} on the "
+                         f"card, {hp_cpu_results['mAP@0.50']} on the CPU")
+    require_launches("evaluate_host_pyramid", hp_counts, "hat_resample_correlation", hp_expected)
 
     if "--profile" in argv:
         profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),

@@ -12,25 +12,35 @@ Counterpart of `DataloaderOneShotDetection` in `os2d_tpu/data/dataloader.py`
     static [B, G] with validity masks, so that targets are encoded on the
     device;
   - scene images for evaluation come out as uint8 base images plus per-level
-    target sizes (`make_raw_iterator_for_all_images`): the pyramid is built
-    on the device.
+    target sizes (`make_raw_iterator_for_all_images`, the pyramid is built
+    on the device), or as normalized host-built pyramids
+    (`make_iterator_for_all_images`, optionally at random scales, which hard
+    patch mining scores);
+  - after `set_hard_negative_data` each train image is cropped at one of its
+    mined records (half the batch a hard negative, half a hard positive) and
+    the mined labels join the batch's classes;
+  - with a device class cache attached (`attach_device_class_cache`, see
+    data/class_cache.py) a batch carries the indices of its class images
+    (`class_gather`) in place of the images.
 The random draws come from generators the loader owns, seeded once (from
-`seed`, else from the global `random` stream): batch composition, flips and
-label sampling from one, the image augmentations from another (the JAX
-package draws those from the global `random`; the calls and their order are
-the same). Hard-negative mining and the device class cache are not ported.
+`seed`, else from the global `random` stream): batch composition, flips,
+label sampling, mined records and random pyramid scales from one, the image
+augmentations from another (`aug_rng`; the JAX package draws those from the
+global `random`; the calls and their order are the same).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import random
 
 import numpy as np
+from PIL import Image
 
 from ..structures.feature_map import FeatureMapSize, exact_resize_area
-from ..structures.host_boxes import TransformList
+from ..structures.host_boxes import FLIP_LEFT_RIGHT, FLIP_TOP_BOTTOM, HostBoxes, TransformList
 from . import transforms as T
 from .dataset import DatasetOneShotDetection
 
@@ -104,6 +114,15 @@ class DataAugmentationParams:
             max_trial=self.max_trial, min_box_coverage=self.min_box_coverage,
             boxes=boxes, transform_list=transform_list)
 
+    def crop_image(self, img, crop_position, boxes=None, transform_list=None):
+        """The crop at a given position (a mined crop box), zero-padding the
+        image where the box exceeds it; no draw."""
+        return T.crop(
+            img, crop_position=crop_position,
+            coverage_keep_threshold=self.coverage_keep_threshold,
+            coverage_remove_threshold=self.coverage_remove_threshold,
+            boxes=boxes, transform_list=transform_list)
+
     def random_crop_label_image(self, img):
         if self.do_random_crop_label_images:
             ar = img.size[0] / img.size[1]
@@ -131,13 +150,15 @@ class DataloaderOneShotDetection:
         # the augmentation stream, then the batch-level one seeded from it
         # (os2d_tpu draws the first from the global random, the second from
         # random.getrandbits(64) of it)
-        self._aug_rng = random.Random(random.getrandbits(64) if seed is None else seed)
-        self._rng = random.Random(self._aug_rng.getrandbits(64))
+        self.aug_rng = random.Random(random.getrandbits(64) if seed is None else seed)
+        self._rng = random.Random(self.aug_rng.getrandbits(64))
         self._np_rng = np.random.RandomState(self._rng.getrandbits(32))
         self.img_normalization = img_normalization or {"mean": IMG_MEAN, "std": IMG_STD}
         self.gt_image_size = gt_image_size
         self.mine_extra_class_images = mine_extra_class_images
         self.images_uint8 = images_uint8
+        self.hardnegdata_per_imageid = None  # set_hard_negative_data
+        self.device_class_cache = None  # attach_device_class_cache
         self.pyramid_scales_eval = list(pyramid_scales_eval)
         self.num_pyramid_levels = len(self.pyramid_scales_eval)
         if class_shape_palette == "default":
@@ -147,7 +168,7 @@ class DataloaderOneShotDetection:
 
         if do_augmentation:
             self.data_augmentation = DataAugmentationParams(
-                self._aug_rng, random_flip_batches=random_flip_batches,
+                self.aug_rng, random_flip_batches=random_flip_batches,
                 random_crop_size=random_crop_size, random_crop_scale=random_crop_scale,
                 jitter_aspect_ratio=jitter_aspect_ratio, scale_jitter=scale_jitter,
                 random_color_distortion=random_color_distortion,
@@ -162,6 +183,16 @@ class DataloaderOneShotDetection:
         self._create_buckets(merge_one_bucket=not self.use_buckets)
         if self.mine_extra_class_images:
             self._mine_extra_class_images()
+
+    def attach_device_class_cache(self, cache):
+        """Serve class images from a device-resident (class, method) stack
+        (data/class_cache.py) in place of per-batch host PIL work and upload.
+        Each class's resample-method draw is still made from `aug_rng` where
+        T.resize would make it, so batch composition and the later draws
+        stay those of the host path. None detaches the cache."""
+        if cache is not None:
+            cache.validate_loader(self)
+        self.device_class_cache = cache
 
     def get_name(self):
         return self.dataset.get_name()
@@ -232,7 +263,7 @@ class DataloaderOneShotDetection:
             size_new = exact_resize_area(w=size_old.w, h=size_old.h,
                                          target_area_side=self.gt_image_size)
         img, _ = T.resize(img, target_size=size_new,
-                          rng=self._aug_rng if do_augmentation else None)
+                          rng=self.aug_rng if do_augmentation else None)
         if as_uint8:
             return np.asarray(img, np.uint8)
         return image_to_normalized_array(img, self.img_normalization)
@@ -244,31 +275,71 @@ class DataloaderOneShotDetection:
         arrays = [self._transform_image_gt(img, do_augmentation=False) for img in class_images]
         return arrays, class_image_sizes, class_ids
 
-    # ---- train images ----
-    def _transform_image(self, image_id, boxes, hflip=False, vflip=False, as_uint8=False):
-        """Flip, random crop, resize to the crop size and color distortion of
-        one train image, with its boxes (os2d_tpu/data/dataloader.py:309-390
-        at pyramid scale 1, including its final resize and its draw)."""
+    # ---- data images ----
+    def _transform_image_to_pyramid(self, image_id, boxes=None, do_augmentation=True,
+                                    hflip=False, vflip=False, pyramid_scales=(1,),
+                                    mined_data=None, as_uint8=False):
+        """Flip, crop (random, or at a mined record's crop box), resize to the
+        crop size and color distortion of one image with its boxes, then one
+        resize per pyramid scale (os2d_tpu/data/dataloader.py:309-380).
+        Returns (per-level images, per-level boxes, mask_cutoff,
+        mask_difficult, per-level inverse transforms)."""
         img = self.dataset._get_dataset_image_by_id(image_id)
-        aug = self.data_augmentation
+        img_size = FeatureMapSize.from_image(img)
+        aug = self.data_augmentation if do_augmentation else None
+        if boxes is None:
+            boxes = HostBoxes.create_empty(img_size)
         mask_cutoff = np.zeros(len(boxes), bool)
         mask_difficult = np.zeros(len(boxes), bool)
         inverse = TransformList()
         img, boxes = T.transpose(img, hflip=hflip, vflip=vflip, boxes=boxes,
                                  transform_list=inverse)
+        crop_position = None
+        if mined_data is not None:
+            # the mined box is in the unflipped image: flip it with the batch
+            crop_position = HostBoxes(
+                np.asarray(mined_data["crop_position_xyxy"], np.float32).reshape(1, 4), img_size)
+            if hflip:
+                crop_position = crop_position.transpose(FLIP_LEFT_RIGHT)
+            if vflip:
+                crop_position = crop_position.transpose(FLIP_TOP_BOTTOM)
         if aug is not None and aug.do_random_crop:
-            img, boxes, mask_cutoff, mask_difficult = aug.random_crop(
-                img, boxes=boxes, transform_list=inverse)
+            if crop_position is None:
+                img, boxes, mask_cutoff, mask_difficult = aug.random_crop(
+                    img, boxes=boxes, transform_list=inverse)
+            else:
+                img, boxes, mask_cutoff, mask_difficult = aug.crop_image(
+                    img, crop_position, boxes=boxes, transform_list=inverse)
             img, boxes = T.resize(img, target_size=aug.random_crop_size, rng=aug.rng,
                                   boxes=boxes, transform_list=inverse)
         if aug is not None:
             img = aug.random_distort(img)
         size = FeatureMapSize.from_image(img)
-        img, boxes = T.resize(img, target_size=size, rng=aug.rng if aug is not None else None,
-                              boxes=boxes, transform_list=inverse)
-        arr = np.asarray(img, np.uint8) if as_uint8 else image_to_normalized_array(
-            img, self.img_normalization)
-        return arr, boxes, mask_cutoff, mask_difficult, inverse
+        images, level_boxes, inverses = [], [], []
+        for s in pyramid_scales:
+            level_inverse = copy.deepcopy(inverse)
+            level, b = T.resize(img, target_size=FeatureMapSize(w=int(size.w * s), h=int(size.h * s)),
+                                rng=aug.rng if aug is not None else None, boxes=boxes,
+                                transform_list=level_inverse)
+            images.append(np.asarray(level, np.uint8) if as_uint8
+                          else image_to_normalized_array(level, self.img_normalization))
+            level_boxes.append(b)
+            inverses.append(level_inverse)
+        return images, level_boxes, mask_cutoff, mask_difficult, inverses
+
+    def _transform_image(self, image_id, boxes, hflip=False, vflip=False, mined_data=None,
+                         as_uint8=False):
+        """One train image at pyramid scale 1, with its boxes (its final
+        resize and draw included, as the JAX package's)."""
+        images, level_boxes, mask_cutoff, mask_difficult, inverses = \
+            self._transform_image_to_pyramid(image_id, boxes, hflip=hflip, vflip=vflip,
+                                             mined_data=mined_data, as_uint8=as_uint8)
+        return images[0], level_boxes[0], mask_cutoff, mask_difficult, inverses[0]
+
+    def set_hard_negative_data(self, hardnegdata_per_imageid):
+        """Mined records per image id (engine.mining.mine_hard_patches): from
+        now on every train batch is cropped at them."""
+        self.hardnegdata_per_imageid = copy.deepcopy(hardnegdata_per_imageid)
 
     @staticmethod
     def convert_label_ids_global_to_local(label_ids_global, class_ids):
@@ -287,30 +358,67 @@ class DataloaderOneShotDetection:
 
     def _prepare_batch(self, image_ids):
         """One training batch (os2d/data/dataloader.py:497-613;
-        os2d_tpu/data/dataloader.py:418-578 without mined data).
+        os2d_tpu/data/dataloader.py:418-578).
 
         Returns a dict of numpy arrays: images [B, H, W, 3], class_images (a
-        list of [h, w, 3]), the padded GT (gt_boxes [B, G, 4], gt_labels /
+        list of [h, w, 3]; None with a device class cache, whose indices are
+        then in class_gather), the padded GT (gt_boxes [B, G, 4], gt_labels /
         gt_difficult / gt_valid [B, G]), class_ids, plus the host-side
         inverse transforms and HostBoxes.
         """
+        mined_data = {}
+        if self.hardnegdata_per_imageid is not None:
+            # half the batch crops at a hard negative, half at a hard positive
+            # ("pos" also picks "pos_loc"); one record drawn per image
+            num_neg = len(image_ids) // 2
+            roles = ["neg"] * num_neg + ["pos"] * (len(image_ids) - num_neg)
+            for image_id, role in zip(image_ids, roles):
+                cands = self.hardnegdata_per_imageid[image_id]
+                filtered = [d for d in cands if d["role"][:len(role)] == role] or cands
+                mined_data[image_id] = filtered[self._rng.randrange(len(filtered))]
+        mined_labels = [d["label_global"] for d in mined_data.values()]
+
         class_ids = self.dataset.get_dataframe_for_image_ids(image_ids)["classid"].unique()
         max_batch_labels = (self.max_batch_labels if self.max_batch_labels is not None
-                            else class_ids.size + 1)
+                            else class_ids.size + len(mined_labels) + 1)
         class_ids = np.unique(class_ids)
         self._np_rng.shuffle(class_ids)
-        class_ids = sorted(int(c) for c in np.unique(class_ids[:max_batch_labels]))
+        class_ids = class_ids[:max_batch_labels - len(mined_labels)]
+        class_ids = np.unique(np.concatenate((class_ids, np.asarray(mined_labels,
+                                                                    class_ids.dtype))))
+        class_ids = sorted(int(c) for c in class_ids)
 
         aug = self.data_augmentation
         batch_vflip = aug is not None and aug.batch_random_vflip and self._rng.random() < 0.5
         batch_hflip = aug is not None and aug.batch_random_hflip and self._rng.random() < 0.5
 
-        # class images ship uint8 when images_uint8 (the step normalizes on
-        # the device)
-        class_images_pil, _ = self.get_class_images_and_sizes(class_ids, do_augmentation=True)
-        class_images = [self._transform_image_gt(img, hflip=batch_hflip, vflip=batch_vflip,
-                                                 as_uint8=self.images_uint8)
-                        for img in class_images_pil]
+        class_gather = None
+        if self.device_class_cache is not None:
+            # the class images are resolved on the device from the cache; the
+            # one per-class draw left is the resample method T.resize would
+            # draw (only when augmentation asks for random interpolation, as
+            # there), so that the augmentation stream stays aligned
+            random_interp = aug is not None and aug.random_interpolation
+            class_gather = {
+                "cache": self.device_class_cache,
+                "class_ids": class_ids,
+                "method_idx": [T.RESAMPLE_CHOICES.index(
+                    self.aug_rng.choice(T.RESAMPLE_CHOICES) if random_interp
+                    else Image.BILINEAR) for _ in class_ids],
+                "hflip": batch_hflip,
+                "vflip": batch_vflip,
+            }
+            class_images = None
+            class_image_sizes = [self.device_class_cache.sizes[c] for c in class_ids]
+        else:
+            # class images ship uint8 when images_uint8 (the step normalizes
+            # on the device)
+            class_images_pil, _ = self.get_class_images_and_sizes(class_ids, do_augmentation=True)
+            class_images = [self._transform_image_gt(img, hflip=batch_hflip, vflip=batch_vflip,
+                                                     as_uint8=self.images_uint8)
+                            for img in class_images_pil]
+            class_image_sizes = [FeatureMapSize(w=a.shape[1], h=a.shape[0])
+                                 for a in class_images]
 
         batch_images, batch_inverse_transform, batch_boxes = [], [], []
         img_size = None
@@ -320,7 +428,7 @@ class DataloaderOneShotDetection:
                 boxes.get_field("labels"), class_ids))
             img, boxes, mask_cutoff, mask_difficult, inv_t = self._transform_image(
                 image_id, boxes, hflip=batch_hflip, vflip=batch_vflip,
-                as_uint8=self.images_uint8)
+                mined_data=mined_data.get(image_id), as_uint8=self.images_uint8)
             boxes.add_field("difficult", boxes.get_field("difficult") | mask_difficult)
             labels = boxes.get_field("labels")
             labels[mask_cutoff] = -2
@@ -351,9 +459,9 @@ class DataloaderOneShotDetection:
         return {
             "images": np.stack(batch_images, 0),
             "class_images": class_images,
+            "class_gather": class_gather,
             "class_ids": class_ids,
-            "class_image_sizes": [FeatureMapSize(w=a.shape[1], h=a.shape[0])
-                                  for a in class_images],
+            "class_image_sizes": class_image_sizes,
             "gt_boxes": gt_boxes,
             "gt_labels": gt_labels,
             "gt_difficult": gt_difficult,
@@ -398,6 +506,38 @@ class DataloaderOneShotDetection:
                     for init in initial_sizes
                 ]
                 yield batch_ids, base_images, level_sizes, inverse_scales, initial_sizes
+
+    def make_iterator_for_all_images(self, batch_size=None, num_random_pyramid_scales=0):
+        """Yields (batch_ids, pyramids, inverse_scales, transforms,
+        initial_sizes) per batch of one size bucket, the pyramid built on the
+        host (PIL bilinear, os2d/data/dataloader.py:432-476): pyramids per
+        level [B, h_l, w_l, 3] normalized float32 arrays; inverse_scales per
+        image the per-level (sx, sy) back to the original coordinates. With
+        num_random_pyramid_scales, each batch takes that many scales drawn
+        uniformly between the smallest and the largest eval scale (mining)."""
+        buckets_ids = self.dataset.split_images_into_buckets_by_size()
+        batch_size = (
+            max(len(ids) for ids in buckets_ids) if batch_size is None else batch_size
+        )
+        for ids_b in buckets_ids:
+            for batch_start in range(0, len(ids_b), batch_size):
+                batch_ids = ids_b[batch_start: batch_start + batch_size]
+                pyramid_scales = self.pyramid_scales_eval
+                if num_random_pyramid_scales:
+                    lo, hi = min(pyramid_scales), max(pyramid_scales)
+                    pyramid_scales = [self._rng.uniform(lo, hi)
+                                      for _ in range(num_random_pyramid_scales)]
+                per_image, transforms, initial_sizes = [], [], []
+                for image_id in batch_ids:
+                    images, _, _, _, inverses = self._transform_image_to_pyramid(
+                        image_id, do_augmentation=False, pyramid_scales=pyramid_scales)
+                    per_image.append(images)
+                    transforms.append(inverses)
+                    initial_sizes.append(self.dataset.get_image_size_for_image_id(image_id))
+                pyramids = [np.stack([p[i] for p in per_image], 0)
+                            for i in range(len(pyramid_scales))]
+                inverse_scales = [[t.as_scale_xy() for t in inverses] for inverses in transforms]
+                yield batch_ids, pyramids, inverse_scales, transforms, initial_sizes
 
 
 def build_train_dataloader_from_config(cfg, dataset_train, img_normalization=None, seed=None,

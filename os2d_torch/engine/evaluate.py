@@ -15,8 +15,11 @@
   then: negatives count).
 - With cfg.tpu.fold_bn, `evaluate` runs a copy of the model with its
   BatchNorms folded (`models.os2d.fold_inference_params`).
-Not ported yet: the host-pyramid and heatmap paths, visualisation, int8
-class banks and meshes.
+- `Evaluator.score_pyramid` scores a host-built pyramid level by level and
+  returns the raw per-level outputs (corners too on request): the
+  host-pyramid path of `evaluate` (cfg.tpu.device_side_pyramid=False) and
+  hard-patch mining (engine/mining.py) run on it.
+Not ported yet: the heatmaps, visualisation, int8 class banks and meshes.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..models.head import ClassHead, correlation_gemm
 from ..models.os2d import fold_inference_params
 from ..ops.geometry import l2_normalize_channels
 from ..ops.sampling import resize_bilinear_antialias
+from ..structures.feature_map import FeatureMapSize
 from .decode import decode_pyramid, default_boxes_for_image_size
 from .objective import compute_objective
 from .targets import encode_targets, remap_targets
@@ -229,27 +233,44 @@ class Evaluator:
             fms.append(self.model.extract_features(level))
         return fms
 
-    def _score_levels(self, fms, feats, mask):
-        """Head over class chunks at every level -> (loc_p, cls_p) per level,
-        [B, C, 4, A_l] and [B, C, A_l]. Chunks of cfg.tpu.eval_class_chunk
-        bound the [B, chunk, H, W, 225] correlation tensor; the last chunk is
-        zero-padded to the full size and the padding trimmed."""
+    def _score_levels(self, fms, feats, mask, keys=("loc", "cls")):
+        """Head over class chunks at every level -> {key: [per level]} for the
+        head outputs in `keys`: loc [B, C, 4, A_l], cls [B, C, A_l], corners
+        [B, C, 8, A_l]. Chunks of cfg.tpu.eval_class_chunk bound the [B,
+        chunk, H, W, 225] correlation tensor; the last chunk is zero-padded to
+        the full size and the padding trimmed."""
         chunk = int(self.cfg.tpu.eval_class_chunk)
         c_total = feats.shape[0]
         c_pad = -(-c_total // chunk) * chunk
         feats = _pad_classes(feats, c_pad)
         mask = _pad_classes(mask, c_pad)
-        loc_p, cls_p = [], []
+        scores = {k: [] for k in keys}
         for fm in fms:
-            locs, clss = [], []
+            parts = {k: [] for k in keys}
             for start in range(0, c_pad, chunk):
                 out = self.model.apply_head(
                     fm, ClassHead(feats[start:start + chunk], mask[start:start + chunk]))
-                locs.append(out["loc"])
-                clss.append(out["cls"])
-            loc_p.append(torch.cat(locs, dim=1)[:, :c_total])
-            cls_p.append(torch.cat(clss, dim=1)[:, :c_total])
-        return loc_p, cls_p
+                for k in keys:
+                    parts[k].append(out[k])
+            for k in keys:
+                scores[k].append(torch.cat(parts[k], dim=1)[:, :c_total])
+        return scores
+
+    @torch.no_grad()
+    def score_pyramid(self, pyramid_images, class_head: ClassHead, want_corners: bool = False):
+        """Backbone and head over every level of a host-built pyramid and
+        every class (os2d_tpu/engine/evaluate.py:354-430), with no graph
+        recorded whatever the model's training state.
+
+        Args: pyramid_images, per level [B, h_l, w_l, 3] normalized images
+        (arrays or tensors). Returns per level a dict of tensors on the
+        model's device: loc [B, C, 4, A_l], cls [B, C, A_l] and, with
+        want_corners, corners [B, C, 8, A_l]."""
+        keys = ("loc", "cls", "corners") if want_corners else ("loc", "cls")
+        fms = [self.model.extract_features(torch.as_tensor(level, device=self.model.device))
+               for level in pyramid_images]
+        scores = self._score_levels(fms, class_head.class_feats, class_head.pool_mask, keys)
+        return [{k: scores[k][i] for k in keys} for i in range(len(fms))]
 
     @torch.no_grad()
     def detect_images(self, images_u8, class_head: ClassHead, level_sizes,
@@ -271,7 +292,8 @@ class Evaluator:
             (`eval_losses`).
         """
         fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
-        loc_p, cls_p = self._score_levels(fms, class_head.class_feats, class_head.pool_mask)
+        scores = self._score_levels(fms, class_head.class_feats, class_head.pool_mask)
+        loc_p, cls_p = scores["loc"], scores["cls"]
         scales = [tuple(s) for s in inverse_scales]
         packed = _decode_and_pack(loc_p, cls_p, list(level_sizes), scales, num_views, self.cfg)
         if objective_cfg is None:
@@ -355,7 +377,8 @@ class Evaluator:
         row_idx = (sel[:, None] * num_views + np.arange(num_views)).reshape(-1)
         row_idx = np.concatenate([row_idx, np.zeros((c_sel_pad - n_sel_rows,), np.int64)])
         rows = torch.as_tensor(row_idx, device=device)
-        loc_p, cls_p = self._score_levels(fms, feats_bank[rows], pool_mask[rows])
+        scores = self._score_levels(fms, feats_bank[rows], pool_mask[rows])
+        loc_p, cls_p = scores["loc"], scores["cls"]
         # c_sel_pad need not divide into views: trim to the largest
         # view-aligned row count (the real rows are within it)
         g_rows = (c_sel_pad // num_views) * num_views
@@ -375,8 +398,6 @@ def _unported_eval_options(cfg, mesh):
     unported = []
     if mesh is not None:
         unported.append("a mesh")
-    if not bool(cfg.tpu.device_side_pyramid):
-        unported.append("cfg.tpu.device_side_pyramid=False (the host-pyramid path)")
     viz = cfg.visualization.eval
     for flag in ("show_class_heatmaps", "show_detections", "show_gt_boxes"):
         if bool(viz[flag]):
@@ -394,16 +415,18 @@ def _unported_eval_options(cfg, mesh):
 def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=False,
              logger_prefix="OS2D.eval", mesh=None):
     """Full-dataset evaluation -> {mAP@iou: value, ...}
-    (os2d/engine/evaluate.py:21-174; the fused path of
-    os2d_tpu/engine/evaluate.py:1003-1325).
+    (os2d/engine/evaluate.py:21-174; os2d_tpu/engine/evaluate.py:1003-1421).
 
     The model owns its weights (an `Os2dModel`). Batches of one size bucket
     are uploaded as uint8 (`cfg.tpu.upload_pixel_format` "auto" and "rgb8"
     both mean rgb8) and detected with TTA views when
     cfg.eval.class_image_augmentation is set, through the class prescreen
     when cfg.eval.nms_score_threshold is finite. The host unpacks batch i
-    after batch i+1 was issued. With the prescreen, results also hold
-    "prescreen_pruned": the (batch, class) pairs it skipped. With a
+    after batch i+1 was issued. With cfg.tpu.device_side_pyramid=False the
+    pyramid is built on the host instead (the dataloader's
+    `make_iterator_for_all_images`), scored by `Evaluator.score_pyramid`
+    and decoded image by image, without the prescreen. With the prescreen,
+    results also hold "prescreen_pruned": the (batch, class) pairs it skipped. With a
     `criterion` (an ObjectiveConfig) the results also hold the mean over
     images of each loss term of the objective, from the same scores (the
     prescreen is bypassed then: every class row counts as a negative).
@@ -428,9 +451,13 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
         class_images, cfg.eval.class_image_augmentation)
     img_norm = dataloader.img_normalization
     batch_size = max(1, int(cfg.eval.batch_size))
-    use_prescreen = criterion is None and evaluator.prescreen_applicable()
+    device_pyramid = bool(cfg.tpu.device_side_pyramid)
+    use_prescreen = device_pyramid and criterion is None and evaluator.prescreen_applicable()
     detect = evaluator.detect_images_prescreened if use_prescreen else evaluator.detect_images
-    if use_prescreen:
+    if not device_pyramid:
+        logger.info("eval path: host pyramid, per-level dispatches "
+                    "(cfg.tpu.device_side_pyramid=False)")
+    elif use_prescreen:
         logger.info("eval path: two-phase (no-miss class prescreen at score threshold "
                     f"{float(cfg.eval.nms_score_threshold)})")
 
@@ -443,11 +470,11 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
             g_pad = max(g_pad, len(dataloader.dataset.get_image_annotation_for_imageid(iid)))
         g_pad = -(-g_pad // 8) * 8
 
-    def _gt_batch(batch_ids_b):
+    def _gt_batch(batch_ids_b, rows_total):
         rows = [padded_gt_for_image(dataloader, i, class_ids, num_views, g_pad)
                 for i in batch_ids_b]
         rows += [(np.zeros((g_pad, 4), np.float32), np.full((g_pad,), -1, np.int64),
-                  np.zeros((g_pad,), bool), np.zeros((g_pad,), bool))] * (batch_size - len(rows))
+                  np.zeros((g_pad,), bool), np.zeros((g_pad,), bool))] * (rows_total - len(rows))
         return {k: np.stack([r[j] for r in rows])
                 for j, k in enumerate(("boxes", "labels", "difficult", "valid"))}
 
@@ -481,25 +508,43 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
                 "image_size": (ann.image_size.w, ann.image_size.h),
             })
 
-    pending = None
-    for (batch_ids, base_images, level_sizes, inv_scales,
-         initial_sizes) in dataloader.make_raw_iterator_for_all_images(batch_size):
-        # a partial tail batch repeats its last image (a bucket's images share
-        # one size); only the genuine rows are recorded
-        stacked = np.stack(base_images + [base_images[-1]] * (batch_size - len(base_images)))
-        images = torch.as_tensor(stacked, device=model.device)
-        if criterion is None:
-            packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
-                            num_views=num_views)
-        else:
-            packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
-                            num_views=num_views, objective_cfg=criterion,
-                            gt=_gt_batch(batch_ids))
+    if not device_pyramid:
+        # the host-built pyramid (os2d_tpu/engine/evaluate.py:1343-1400):
+        # every level scored against every class, then each image decoded,
+        # and its losses taken, at its own inverse scales
+        for (batch_ids, pyramids, inv_scales, _,
+             initial_sizes) in dataloader.make_iterator_for_all_images(batch_size):
+            level_outputs = evaluator.score_pyramid(pyramids, class_head)
+            sizes = [FeatureMapSize(w=p.shape[2], h=p.shape[1]) for p in pyramids]
+            for i_image, image_id in enumerate(batch_ids):
+                loc_p = [o["loc"][i_image:i_image + 1] for o in level_outputs]
+                cls_p = [o["cls"][i_image:i_image + 1] for o in level_outputs]
+                scales = [tuple(s) for s in inv_scales[i_image]]
+                packed = _decode_and_pack(loc_p, cls_p, sizes, scales, num_views, cfg)
+                if criterion is not None:
+                    packed = (packed, eval_losses(criterion, cfg, loc_p, cls_p, sizes, scales,
+                                                  _gt_batch([image_id], 1)))
+                _finalize([image_id], initial_sizes[i_image:i_image + 1], packed)
+    else:
+        pending = None
+        for (batch_ids, base_images, level_sizes, inv_scales,
+             initial_sizes) in dataloader.make_raw_iterator_for_all_images(batch_size):
+            # a partial tail batch repeats its last image (a bucket's images
+            # share one size); only the genuine rows are recorded
+            stacked = np.stack(base_images + [base_images[-1]] * (batch_size - len(base_images)))
+            images = torch.as_tensor(stacked, device=model.device)
+            if criterion is None:
+                packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
+                                num_views=num_views)
+            else:
+                packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
+                                num_views=num_views, objective_cfg=criterion,
+                                gt=_gt_batch(batch_ids, batch_size))
+            if pending is not None:
+                _finalize(*pending)
+            pending = (batch_ids, initial_sizes, packed)
         if pending is not None:
             _finalize(*pending)
-        pending = (batch_ids, initial_sizes, packed)
-    if pending is not None:
-        _finalize(*pending)
 
     results = _finish_evaluation(predictions, gts, cfg, class_ids, dataset_name, t_start,
                                  print_per_class_results, logger, image_ids=all_image_ids)

@@ -58,13 +58,22 @@ def _hard_negative_ranking(cls_loss, mask_for_search):
 
 
 def compute_objective(cfg: ObjectiveConfig, loc_preds, loc_targets, cls_preds, cls_targets,
-                      cls_targets_remapped=None, cls_preds_for_neg=None):
+                      cls_targets_remapped=None, cls_preds_for_neg=None,
+                      patch_mining_mode: bool = False, want_per_anchor: bool = False):
     """Returns the losses dict: loss, loc_smoothL1, cls_<loss>, cls_<loss>_pos,
     cls_<loss>_neg (with a _hardneg<ratio> suffix for the contrastive loss).
 
     loc_preds / loc_targets [B, L, 4, A]; cls_preds, cls_targets (int,
     {1, 0, -1}), cls_targets_remapped and cls_preds_for_neg [B, L, A].
     Pyramid inputs are concatenated along the anchor axis by the caller.
+
+    With patch_mining_mode (hard-patch mining) the per-anchor losses are
+    plain hinges: RLL skips its renormalization of the positives and the
+    exp weights of the negatives, the contrastive loss its hard-negative
+    ranking. With patch_mining_mode or want_per_anchor (the per-anchor maps
+    at the training semantics) it returns (losses, per_anchor), per_anchor
+    holding the detached [B, L, A] maps pos_mask, neg_mask, cls_loss,
+    loc_loss and pos_for_regression (os2d_tpu/engine/objective.py:63-224).
     """
     pos = cls_targets > 0
     mask_ignored = cls_targets == -1
@@ -93,6 +102,8 @@ def compute_objective(cfg: ObjectiveConfig, loc_preds, loc_targets, cls_preds, c
 
     if cfg.class_loss == "ContrastiveLoss":
         cls_loss = loss_neg.square() + loss_pos.square()
+    elif cfg.class_loss == "RLL" and patch_mining_mode:
+        cls_loss = loss_neg + loss_pos
     elif cfg.class_loss == "RLL":
         # positives: renormalize by the non-trivial count (objective.py:218-224)
         num_nontrivial_pos = ((loss_pos > 0) & pos).sum().to(torch.float32)
@@ -135,9 +146,9 @@ def compute_objective(cfg: ObjectiveConfig, loc_preds, loc_targets, cls_preds, c
 
     mask_all_negs = ~(mask_ignored | pos)
     ratio = cfg.effective_neg_to_pos_ratio
-    if math.isinf(ratio):
+    if patch_mining_mode or math.isinf(ratio):
         # RLL keeps every negative (the reference's float('inf').long() on
-        # CUDA; os2d_tpu/engine/objective.py:176-182)
+        # CUDA; os2d_tpu/engine/objective.py:176-182), and so does mining
         neg = mask_all_negs
     else:
         ranking = _hard_negative_ranking(cls_loss, mask_all_negs)
@@ -156,10 +167,15 @@ def compute_objective(cfg: ObjectiveConfig, loc_preds, loc_targets, cls_preds, c
 
     cls_name = "cls_" + cfg.class_loss
     suffix = "" if math.isinf(ratio) else f"_hardneg{cfg.neg_to_pos_ratio}"
-    return {
+    losses = {
         "loss": loss,
         "loc_smoothL1": loc_loss,
         cls_name + suffix: cls_loss_total,
         cls_name + "_pos": cls_loss_pos,
         cls_name + "_neg" + suffix: cls_loss_neg,
     }
+    if not (patch_mining_mode or want_per_anchor):
+        return losses
+    return losses, {"pos_mask": pos, "neg_mask": neg, "cls_loss": cls_loss.detach(),
+                    "loc_loss": loc_loss_per_element.detach(),
+                    "pos_for_regression": pos_for_regression}

@@ -347,3 +347,59 @@ def test_correlation_gemm_bf16_on_card(cuda_gen):
     want = correlation_gemm(a.cpu(), b.cpu(), torch.bfloat16)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_class_cache_gather_card_matches_cpu(cuda_gen):
+    """The device class cache's gather (plain indexing and torch.flip) on the
+    card equals its result on the CPU for every method and flip, padded rows
+    included."""
+    from os2d_torch.data.class_cache import DeviceClassCache
+
+    stack = torch.randint(0, 256, (5, 6, 16, 12, 3), dtype=torch.uint8, generator=cuda_gen,
+                          device="cuda")
+    ids = [3, 7, 11, 12, 20]
+    index_of = {c: i for i, c in enumerate(ids)}
+    card = DeviceClassCache(ids, index_of, {}, stack)
+    cpu = DeviceClassCache(ids, index_of, {}, stack.cpu())
+    for hflip in (False, True):
+        for vflip in (False, True):
+            for m in range(6):
+                batch_ids, methods = [20, 3, 11], [m, (m + 2) % 6, (m + 5) % 6]
+                got = card.gather(batch_ids, methods, hflip, vflip, 4)
+                assert got.device.type == "cuda"
+                assert torch.equal(got.cpu(), cpu.gather(batch_ids, methods, hflip, vflip, 4))
+
+
+@pytest.mark.parametrize("precision,kernel", [("default", "hat"), ("highest", "gather")])
+def test_score_pyramid_launches_once_per_level_and_chunk(precision, kernel, cuda_gen):
+    """Evaluator.score_pyramid (host pyramid, mining) launches the kernel of
+    its tier once per (level, class chunk), and scores as on the CPU."""
+    from os2d_torch.config import get_default_cfg
+    from os2d_torch.engine.evaluate import Evaluator
+    from os2d_torch.models import Os2dConfig, Os2dModel
+
+    cfg = get_default_cfg()
+    cfg.tpu.eval_class_chunk = 2
+    gen = torch.Generator().manual_seed(0)
+    class_images = [torch.randn(64, 64, 3, generator=gen) for _ in range(5)]  # 3 chunks
+    pyramid = [torch.randn(1, h, w, 3, generator=gen) for h, w in ((128, 160), (96, 128))]
+    card = Os2dModel(Os2dConfig(resample_precision=precision))
+    cpu = Os2dModel(Os2dConfig(resample_precision=precision), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    counters = {"hat": hat_resample.KERNEL, "gather": resample.KERNEL}
+    out = {}
+    for dev, m in (("cuda", card), ("cpu", cpu)):
+        ev = Evaluator(m, cfg)
+        with torch.no_grad():
+            head, _ = ev.build_class_heads(class_images)
+        before = {k: c.launches for k, c in counters.items()}
+        out[dev] = ev.score_pyramid(pyramid, head, want_corners=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = {k: c.launches - before[k] for k, c in counters.items()}
+    assert launched[kernel] == len(pyramid) * 3
+    assert sum(launched.values()) == launched[kernel]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for key in ("loc", "cls", "corners"):
+            torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4,
+                                       atol=1e-2 if key == "corners" else 1e-4)

@@ -138,9 +138,7 @@ def test_batch_prefetcher_pool_ordering_and_errors():
     pf.close()
 
 
-@pytest.mark.parametrize("key,value", [("train.mining.do_mining", True),
-                                       ("visualization.train.show_target_remapping", True),
-                                       ("tpu.device_class_cache", "required"),
+@pytest.mark.parametrize("key,value", [("visualization.train.show_target_remapping", True),
                                        ("tpu.checkpoint_backend", "orbax")])
 def test_trainval_loop_refuses_unported_options(key, value):
     """The JAX trainer's options that are not ported raise before any work."""
