@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of one eval
-                                     # dispatch (fp32, fp32+fold, bf16+fold)
-                                     # and one train step
+                                     # dispatch (fp32, fp32+fold, bf16+fold),
+                                     # one train step, one served request (with
+                                     # its host stages) and one
+                                     # served batch of 8
 
 The model is `Os2dConfig()` at full width (ResNet50-C4, 1024 channels) with
 seeded random weights. Its resample runs at the "default" tier, the bf16 hat
@@ -135,6 +137,32 @@ Phases, each printing one JSON line:
               False over phase 4's planted set at two levels: mAP@0.50 1.0
               on the card and on the CPU, the hat kernel once per (image,
               level).
+ 20. checkpoint  a seeded card model (seed 1) written as a reference-layout
+              `.pth` (its keys renamed to the reference's, num_batches_tracked
+              added) and as the port's own `utils.logger.checkpoint_model`
+              `.pth` under build/; each loaded through
+              `models.checkpoint.load_checkpoint_file` into a card model
+              (seed 0): the state_dict equal to the source's to the bit, and
+              the first request (phase 21's) answered as by the source
+              (scores 1e-4, boxes 1e-2 px).
+ 21. serve    `api.service.DetectionService` on the model loaded from the
+              reference layout, at the shipped TARGET_IMAGE_SIZE 1500, the
+              default tier and a 16-class catalog (the planted patch and 15
+              others): detect_from_request on a planted 1280x960 PNG/base64
+              request (fm 71x94; top box on the patch, card against CPU at
+              scores 1e-4, boxes 1e-2 px); detect_batch of 8 planted scenes
+              of mixed sizes on the 1500x1500 canvas (B=8, fm 94x94; every
+              top box on its patch); a DynamicBatcher(max_batch=8) with 8
+              client threads (each result equal to detect_batch's, scores
+              1e-5; the batch sizes formed); a 64-class catalog through the
+              prescreen (`stats`), equal to the full path; one "highest"
+              request (the gather, once); the hat kernel held against its
+              plain version on the tensors the service passed it (B=1 71x94,
+              B=8 94x94) and timed there beside its bound. One hat launch
+              per dispatch (one level, one class chunk), the padded survivor
+              chunks under the prescreen. Timed after warm-up: sequential
+              requests (median, p99 ms, requests/s) and 8 clients x 8
+              requests through the batcher (img/s, median, p99 ms).
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
 entry point that enqueues a memset, a scatter kernel and a transpose
 kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
@@ -144,8 +172,11 @@ integer and border coordinates, collapsed planes (every sample of a plane
 on one point) and the training shape (B=4, C=16, 38x38, T=121 of 225) on
 uniform, near-identity, exact-identity and collapsed inputs.
 Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-19
-(each dispatch of phase 14) and read just after it, and around each step of
-phase 17; a phase whose kernel was not launched fails. Then one
+(each dispatch of phase 14) and read just after it, around each step of
+phase 17 and each call of phase 21; a phase whose kernel was not launched
+fails. The kernels line counts the launches of the timed dispatches of
+phases 6 (hat) and 7 (gather) and of phase 10's loop (backward), with
+those of phase 21 added to the hat and the gather. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
 exits 1.
@@ -157,6 +188,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 # H100 SXM published peaks: HBM bytes/s and fp32 (non-tensor-core) flop/s
 HBM_BYTES_PER_S = 3.35e12
@@ -222,6 +254,21 @@ MINING_ATOL = 1e-6
 MINE_ITER = 2
 CACHE_CHECK_BATCHES = 8
 CACHE_TIMING_ROUNDS = 4
+# the serving phases 20-21: a checkpoint cascade into card models, then
+# DetectionService and DynamicBatcher at the shipped 1500-px target
+SERVE_CLASSES, SERVE_LARGE_CATALOG = 16, 64
+SERVE_REQUEST = (1280, 960)  # detect(): resized to 1500x1125, fm 71x94
+SERVE_REQUEST_PATCH = 205  # 240 px once resized by 1500/1280
+# detect_batch: mixed sizes whose longer side is the canvas's, so each
+# planted 240-px patch keeps its size on the 1500x1500 canvas (fm 94x94)
+SERVE_BATCH_SIZES = [(1500, 1125), (1125, 1500), (1500, 1000), (1500, 1500),
+                     (1500, 844), (1000, 1500), (1500, 1200), (1200, 1500)]
+SERVE_BATCHER_CLIENTS, SERVE_CLIENT_REQUESTS = 8, 8
+SERVE_TIMED_REQUESTS = 30
+SERVE_BATCHER_ATOL = 1e-5
+# the reference TransformationNet's modules for the port's (models/checkpoint.py)
+REFERENCE_TRANSFORM_NET = {"conv0": "conv.0", "bn0": "conv.1", "conv1": "conv.3",
+                           "bn1": "conv.4", "linear": "linear"}
 # the numeric modes of phases 13-14: (name, compute_dtype, BN folded)
 NUMERIC_MODES = (("fp32", "float32", False), ("fp32_fold", "float32", True),
                  ("bf16", "bfloat16", False), ("bf16_fold", "bfloat16", True))
@@ -497,6 +544,449 @@ def mined_records_disagree(got, want, rtol, atol):
                 if not abs(g[key] - w[key]) <= atol + rtol * abs(w[key]):
                     return f"{where}: {key} {g[key]} against {w[key]}", errs
     return None, errs
+
+
+def reference_layout(state_dict):
+    """A port state_dict renamed to the reference's Os2dModel layout (the
+    "net" of its checkpoints), with a num_batches_tracked beside every
+    BatchNorm, on the CPU."""
+    import torch
+
+    out = {}
+    for k, v in state_dict.items():
+        head, rest = k.split(".", 1)
+        if head == "backbone":
+            name = "net_feature_maps." + rest
+        elif head == "label_backbone":
+            name = "net_label_features.net_class_features." + rest
+        else:
+            module, field = rest.split(".", 1)
+            name = (f"os2d_head_creator.aligner.parameter_regressor."
+                    f"{REFERENCE_TRANSFORM_NET[module]}.{field}")
+        out[name] = v.detach().to("cpu", copy=True)
+        if name.endswith(".running_var"):
+            out[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def serve_patches(n, seed):
+    """n class patches of PATCH px, 8-px blocks of seeded random colors."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [np.kron(rng.randint(0, 255, (PATCH // 8, PATCH // 8, 3), np.uint8),
+                    np.ones((8, 8, 1), np.uint8)) for _ in range(n)]
+
+
+def planted_scene(w, h, patch, rng, scale=1.0):
+    """A dark noise scene of w x h with `patch` at a random position that
+    the service's resize by `scale` puts on the 16-px anchor grid (random
+    weights score every anchor within ~2e-3 of each other; the planted patch
+    wins where it fills an anchor); returns (PIL image, planted box
+    [x0, y0, x1, y1])."""
+    import numpy as np
+    from PIL import Image
+
+    scene = rng.randint(0, 60, (h, w, 3), np.uint8)
+    side = patch.shape[0]
+
+    def position(n):
+        k = rng.randint(0, int((n - side) * scale) // 16 + 1)
+        return min(int(round(16 * k / scale)), n - side)
+
+    x0, y0 = position(w), position(h)
+    scene[y0:y0 + side, x0:x0 + side] = patch
+    return Image.fromarray(scene), [x0, y0, x0 + side, y0 + side]
+
+
+def png_b64(img):
+    import base64
+    from io import BytesIO
+
+    buf = BytesIO()
+    img.save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def top_iou(response, w, h, box):
+    """IoU of a response's top box (relative coordinates) with `box` (px)."""
+    import torch
+
+    from os2d_torch.structures.boxes import box_iou
+
+    if not response["scores"]:
+        return 0.0
+    top = torch.tensor([response["bboxes"][0]]) * torch.tensor([w, h, w, h])
+    return float(box_iou(top, torch.tensor([box], dtype=torch.float32)))
+
+
+def responses_agree(got, want, w, h, score_atol=1e-4, box_px=1e-2):
+    """Equal detection counts, and each detection of `got` has one in `want`
+    with its score within score_atol and its box within box_px pixels
+    (robust to the order of near-tied scores)."""
+    import numpy as np
+
+    if len(got["scores"]) != len(want["scores"]):
+        return False
+    scale = np.array([w, h, w, h])
+    ws, wb = np.array(want["scores"]), np.array(want["bboxes"]).reshape(-1, 4) * scale
+    for s, b in zip(got["scores"], np.array(got["bboxes"]).reshape(-1, 4) * scale):
+        if not ((np.abs(ws - s) <= score_atol) & (np.abs(wb - b).max(-1) <= box_px)).any():
+            return False
+    return True
+
+
+def percentile_ms(times, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(times) * 1e3, q))
+
+
+def serve_request_breakdown(service, payload, rounds=10):
+    """Host-clock ms of the stages of DetectionService.detect on one request,
+    median over `rounds`, each stage synchronized: the decode (base64 and
+    the PNGs' pixels, which PIL otherwise decodes lazily at their first
+    use), the class head (query prep and the label branch), the resize to
+    the base canvas, the dispatch (device work, host waits, the copy to the
+    host), the response. Mirrors detect()'s steps through its helpers."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from os2d_torch.api import service as service_mod
+
+    from os2d_torch.ops import nms
+
+    stages = {k: [] for k in ("decode", "class_head", "resize", "dispatch", "response")}
+    sweeps_before = nms.fixpoint_sweeps
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        images, queries = service_mod.parse_request_payload(payload, "image")
+        for img in images + queries:
+            img.load()
+        t1 = time.perf_counter()
+        head, num_views = service._build_class_head(queries)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        image = images[0]
+        ratio = service_mod.TARGET_IMAGE_SIZE * max(service.pyramid_scales) / max(image.size)
+        base_w, base_h = (max(1, int(s * ratio)) for s in image.size)
+        arr = np.array(image.resize((base_w, base_h), Image.BILINEAR), np.uint8)[None]
+        t3 = time.perf_counter()
+        with torch.no_grad():
+            det = service._detect_packed(arr, head, *service._level_plan(base_w, base_h),
+                                         num_views)
+        t4 = time.perf_counter()
+        service._packed_to_response(det, 0, image.size[0] / base_w, image.size[1] / base_h,
+                                    *image.size)
+        t5 = time.perf_counter()
+        for k, (a, b) in zip(stages, ((t0, t1), (t1, t2), (t2, t3), (t3, t4), (t4, t5))):
+            stages[k].append((b - a) * 1e3)
+    emit({"phase": "serve_request_breakdown", "rounds": rounds,
+          "median_ms": {k: float(np.median(v)) for k, v in stages.items()},
+          "nms_fixpoint_sweeps_per_request": (nms.fixpoint_sweeps - sweeps_before) / rounds})
+
+
+def checkpoint_and_serve(counts, device="cuda", profile=False):
+    """Phases 20 (checkpoint) and 21 (serve); returns the kernels' launches
+    in phase serve. `counts` holds reset(), read() and require(phase,
+    counts, kernel, expected). With `profile`, adds a torch.profiler
+    breakdown of one request and one batch of 8."""
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from os2d_torch.api import service as service_mod
+    from os2d_torch.api.service import DetectionService, DynamicBatcher, parse_request_payload
+    from os2d_torch.engine.evaluate import prescreen_margin
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.models.checkpoint import load_checkpoint_file
+    from os2d_torch.ops import hat_resample, resample_grad
+    from os2d_torch.ops.cuda import BUILD_DIR
+    from os2d_torch.ops.sampling import hat_resample_reference
+    from os2d_torch.utils.logger import checkpoint_model
+
+    # ---- 20. checkpoint: the cascade into card models ----
+    rng = np.random.RandomState(20)
+    patches = serve_patches(SERVE_LARGE_CATALOG, seed=20)
+    catalog = [Image.fromarray(p) for p in patches[:SERVE_CLASSES]]
+    req_w, req_h = SERVE_REQUEST
+    small = np.asarray(Image.fromarray(patches[0]).resize(
+        (SERVE_REQUEST_PATCH, SERVE_REQUEST_PATCH), Image.NEAREST))
+    req_scene, req_box = planted_scene(req_w, req_h, small, rng,
+                                       service_mod.TARGET_IMAGE_SIZE / max(req_w, req_h))
+    payload = {"image": {"content": png_b64(req_scene)},
+               "query": [{"content": png_b64(q)} for q in catalog]}
+
+    source = Os2dModel(Os2dConfig(), device=device, seed=1)
+    source_state = source.state_dict()
+    source_resp = DetectionService(source).detect_from_request(payload)
+    loaded, ckpt = {}, {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        paths = {"reference": os.path.join(root, "reference_layout.pth"),
+                 "port": checkpoint_model(source, None, root, model_name="port")}
+        torch.save({"net": reference_layout(source_state)}, paths["reference"])
+        for name, path in paths.items():
+            m = Os2dModel(Os2dConfig(), device=device, seed=0)
+            t0 = time.perf_counter()
+            sd, _ = load_checkpoint_file(path, m.config, m)
+            m.load_state_dict(sd)
+            load_s = time.perf_counter() - t0
+            state = m.state_dict()
+            bit_equal = (set(state) == set(source_state)
+                         and all(torch.equal(state[k], source_state[k]) for k in state))
+            resp = DetectionService(m).detect_from_request(payload)
+            loaded[name] = m
+            ckpt[name] = {"file_mb": os.path.getsize(path) / 2**20, "load_s": load_s,
+                          "state_bit_equal": bit_equal,
+                          "first_detect_equal": resp == source_resp,
+                          "first_detect_agrees": responses_agree(resp, source_resp,
+                                                                 req_w, req_h)}
+    emit({"phase": "checkpoint", "source": "Os2dModel(Os2dConfig(), seed=1) on the card",
+          "files": ckpt, "detections": len(source_resp["scores"])})
+    for name, c in ckpt.items():
+        if not (c["state_bit_equal"] and c["first_detect_agrees"]):
+            raise SystemExit(f"checkpoint: the {name} file did not load as its source: {c}")
+    del source
+
+    # ---- 21. serve: DetectionService and DynamicBatcher at the 1500-px target ----
+    model = loaded["reference"]
+    service = DetectionService(model)
+    captured = []
+    original = resample_grad.FORWARD["default"]
+
+    def capture(corr, px, py, mask_t):
+        out = original(corr, px, py, mask_t)
+        captured.append((corr, px, py, mask_t, out))
+        return out
+
+    # 1. one request, the card against the CPU
+    resample_grad.FORWARD["default"] = capture
+    try:
+        counts.reset()
+        resp = service.detect_from_request(payload)
+        torch.cuda.synchronize()
+        request_counts = counts.read()
+    finally:
+        resample_grad.FORWARD["default"] = original
+    counts.require("serve", request_counts, "hat_resample_correlation", 1)
+    cpu_model = Os2dModel(Os2dConfig(), device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu_resp = DetectionService(cpu_model).detect_from_request(payload)
+    cpu_request_s = time.perf_counter() - t0
+    del cpu_model
+    request_iou = top_iou(resp, req_w, req_h, req_box)
+    request_cpu_agree = responses_agree(resp, cpu_resp, req_w, req_h)
+
+    # 2. detect_batch of 8 scenes of mixed sizes
+    batch = [planted_scene(w, h, patches[0], rng) for w, h in SERVE_BATCH_SIZES]
+    batch_images = [img for img, _ in batch]
+    resample_grad.FORWARD["default"] = capture
+    try:
+        counts.reset()
+        batch_resp = service.detect_batch(batch_images, catalog)
+        torch.cuda.synchronize()
+        batch_counts = counts.read()
+    finally:
+        resample_grad.FORWARD["default"] = original
+    counts.require("serve", batch_counts, "hat_resample_correlation", 1)
+    batch_ious = [top_iou(r, img.size[0], img.size[1], box)
+                  for r, (img, box) in zip(batch_resp, batch)]
+
+    # 3. the batcher, 8 client threads at once, against detect_batch
+    sizes_formed = []
+    detect_batch = service.detect_batch
+
+    def recorded(images, queries):
+        sizes_formed.append(len(images))
+        return detect_batch(images, queries)
+
+    service.detect_batch = recorded
+    batcher = DynamicBatcher(service, max_batch=SERVE_BATCHER_CLIENTS, max_wait_ms=50)
+    try:
+        results = [None] * len(batch_images)
+
+        def client(i):
+            results[i] = batcher.detect(batch_images[i], catalog)
+
+        counts.reset()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(batch_images))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        torch.cuda.synchronize()
+        batcher_counts = counts.read()
+        if any(t.is_alive() for t in threads) or any(r is None for r in results):
+            raise SystemExit("serve: a batcher client did not finish")
+        counts.require("serve", batcher_counts, "hat_resample_correlation", len(sizes_formed))
+        batcher_agree = all(
+            responses_agree(r, w, img.size[0], img.size[1], SERVE_BATCHER_ATOL)
+            for r, w, img in zip(results, batch_resp, batch_images))
+        batcher_sizes = list(sizes_formed)
+    finally:
+        batcher.close()
+        service.detect_batch = detect_batch
+
+    # 4. a 64-class catalog: the prescreen, against the full path
+    large = [Image.fromarray(p) for p in patches]
+    counts.reset()
+    pre_resp = service.detect(req_scene, large)
+    torch.cuda.synchronize()
+    pre_counts = counts.read()
+    pruned = service.evaluator.prescreen_pruned
+    chunk = int(service.eval_cfg.tpu.eval_class_chunk)
+    kept = SERVE_LARGE_CATALOG - pruned
+    n_chunks = min(1 << (max(1, -(-kept // chunk)) - 1).bit_length(),
+                   -(-SERVE_LARGE_CATALOG // chunk)) if kept else 0
+    counts.require("serve", pre_counts, "hat_resample_correlation", n_chunks)
+    full_service = DetectionService(model, prescreen_min_classes=10**9)
+    full_resp = full_service.detect(req_scene, large)
+    prescreen_agree = responses_agree(pre_resp, full_resp, req_w, req_h)
+
+    # 5. one request at the "highest" tier launches the gather
+    model_highest = Os2dModel(Os2dConfig(resample_precision="highest"), device=device)
+    model_highest.load_state_dict(model.state_dict())
+    counts.reset()
+    highest_resp = DetectionService(model_highest).detect(req_scene, catalog)
+    torch.cuda.synchronize()
+    highest_counts = counts.read()
+    counts.require("serve", highest_counts, "resample_correlation", 1)
+    del model_highest
+
+    # 6. the hat kernel on the tensors the service passed it
+    if len(captured) != 2:
+        raise SystemExit(f"serve: captured {len(captured)} resample calls, expected 2")
+    hat = {}
+    for corr, px, py, mask_t, out in captured:
+        b, c, h, w, _ = corr.shape
+        name = f"B{b}_C{c}_{h}x{w}"
+        want = hat_resample_reference(corr, px, py, mask_t)
+        err = max_err_checked(out, want, f"hat kernel on the service's inputs at {name}",
+                              HAT_RTOL, HAT_ATOL)
+        ms = cuda_ms(lambda: hat_resample.resample_correlation_hat(corr, px, py, mask_t), 20)
+        bound_ms, bound_by = hat_bound(b, c, h * w, px.shape[2])
+        hat[name] = {"max_abs_err": err, "bit_equal": err == 0.0, "ms": ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    del captured
+
+    # 8. timing, after the warm-up of the calls above: the host's decode of
+    # a request alone, requests in sequence, batches of 8, the batcher
+    decode = []
+    for _ in range(SERVE_TIMED_REQUESTS):
+        t0 = time.perf_counter()
+        parse_request_payload(payload, "image")
+        decode.append(time.perf_counter() - t0)
+    counts.reset()
+    seq = []
+    t_all = time.perf_counter()
+    for _ in range(SERVE_TIMED_REQUESTS):
+        t0 = time.perf_counter()
+        service.detect_from_request(payload)
+        torch.cuda.synchronize()
+        seq.append(time.perf_counter() - t0)
+    seq_wall = time.perf_counter() - t_all
+    seq_counts = counts.read()
+    counts.require("serve", seq_counts, "hat_resample_correlation", SERVE_TIMED_REQUESTS)
+    counts.reset()
+    batch_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        service.detect_batch(batch_images, catalog)
+        torch.cuda.synchronize()
+        batch_times.append(time.perf_counter() - t0)
+    counts.require("serve", counts.read(), "hat_resample_correlation", 3)
+
+    sizes_formed.clear()
+    service.detect_batch = recorded
+    batcher = DynamicBatcher(service, max_batch=SERVE_BATCHER_CLIENTS)
+    latencies = []
+    lat_lock = threading.Lock()
+    try:
+        def stream(i):
+            for j in range(SERVE_CLIENT_REQUESTS):
+                img = batch_images[(i + j) % len(batch_images)]
+                t0 = time.perf_counter()
+                batcher.detect(img, catalog)
+                with lat_lock:
+                    latencies.append(time.perf_counter() - t0)
+
+        counts.reset()
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(SERVE_BATCHER_CLIENTS)]
+        t_all = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        torch.cuda.synchronize()
+        stream_wall = time.perf_counter() - t_all
+        stream_counts = counts.read()
+        n_stream = SERVE_BATCHER_CLIENTS * SERVE_CLIENT_REQUESTS
+        if any(t.is_alive() for t in threads) or len(latencies) != n_stream:
+            raise SystemExit("serve: the batcher's timed clients did not finish")
+        counts.require("serve", stream_counts, "hat_resample_correlation", len(sizes_formed))
+        stream_sizes = list(sizes_formed)
+    finally:
+        batcher.close()
+        service.detect_batch = detect_batch
+
+    serve_launches = {k: sum(c[k] for c in (request_counts, batch_counts, batcher_counts,
+                                            pre_counts, highest_counts, seq_counts,
+                                            stream_counts))
+                      for k in request_counts}
+    serve_launches["hat_resample_correlation"] += len(batch_times)
+    emit({"phase": "serve", "target_image_size": service_mod.TARGET_IMAGE_SIZE,
+          "resample_precision": model.config.resample_precision, "catalog": SERVE_CLASSES,
+          "request": {"image": f"{req_w}x{req_h} PNG/base64", "top_iou": request_iou,
+                      "detections": len(resp["scores"]), "cuda_matches_cpu": request_cpu_agree,
+                      "cpu_s": cpu_request_s, "launches": request_counts},
+          "detect_batch": {"images": [f"{w}x{h}" for w, h in SERVE_BATCH_SIZES],
+                           "top_ious": batch_ious, "launches": batch_counts},
+          "batcher": {"clients": SERVE_BATCHER_CLIENTS, "batch_sizes": batcher_sizes,
+                      "matches_detect_batch": batcher_agree, "atol": SERVE_BATCHER_ATOL,
+                      "launches": batcher_counts},
+          "prescreen": {"catalog": SERVE_LARGE_CATALOG, "stats": dict(service.stats),
+                        "pruned": pruned, "margin": prescreen_margin("default"),
+                        "matches_full_path": prescreen_agree, "hat_launches_expected": n_chunks,
+                        "launches": pre_counts},
+          "highest": {"detections": len(highest_resp["scores"]), "launches": highest_counts},
+          "hat_at_serving_shapes": hat,
+          "sequential": {"requests": SERVE_TIMED_REQUESTS,
+                         "median_ms": percentile_ms(seq, 50), "p99_ms": percentile_ms(seq, 99),
+                         "requests_per_s": SERVE_TIMED_REQUESTS / seq_wall,
+                         "decode_median_ms": percentile_ms(decode, 50)},
+          "detect_batch_ms": [t * 1e3 for t in batch_times],
+          "batcher_stream": {"clients": SERVE_BATCHER_CLIENTS,
+                             "requests_per_client": SERVE_CLIENT_REQUESTS,
+                             "batch_sizes": stream_sizes, "img_per_s": n_stream / stream_wall,
+                             "median_ms": percentile_ms(latencies, 50),
+                             "p99_ms": percentile_ms(latencies, 99)},
+          "launches": serve_launches})
+    if not request_iou > 0.5:
+        raise SystemExit(f"serve: the request's top box is not on the patch (IoU {request_iou})")
+    if not request_cpu_agree:
+        raise SystemExit("serve: the request's response on the card differs from the CPU's")
+    if not all(iou > 0.5 for iou in batch_ious):
+        raise SystemExit(f"serve: detect_batch top boxes off their patches: {batch_ious}")
+    if not batcher_agree:
+        raise SystemExit("serve: the batcher's results differ from detect_batch's")
+    if service.stats["prescreen_dispatches"] != 1:
+        raise SystemExit(f"serve: the 64-class catalog did not engage the prescreen: "
+                         f"{service.stats}")
+    if not prescreen_agree:
+        raise SystemExit("serve: the prescreened response differs from the full path's")
+    if profile:
+        serve_request_breakdown(service, payload)
+        profile_run("profile_serve_request", lambda: service.detect_from_request(payload),
+                    float(np.median(seq)))
+        profile_run("profile_serve_batch", lambda: service.detect_batch(batch_images, catalog),
+                    float(np.median(batch_times)))
+    return serve_launches
 
 
 def main(argv):
@@ -1640,6 +2130,11 @@ def main(argv):
                          f"card, {hp_cpu_results['mAP@0.50']} on the CPU")
     require_launches("evaluate_host_pyramid", hp_counts, "hat_resample_correlation", hp_expected)
 
+    # ---- 20./21. a checkpoint cascade into card models, then serving ----
+    serve_counts = checkpoint_and_serve(types.SimpleNamespace(
+        reset=reset_counts, read=read_counts, require=require_launches),
+        profile="--profile" in argv)
+
     if "--profile" in argv:
         profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),
                     main_median)
@@ -1655,7 +2150,7 @@ def main(argv):
         "route": "cuda",
         "source": "os2d_torch/csrc/resample.cu",
         "replaces": "os2d_tpu/ops/pallas_resample.py:24",
-        "launches": highest_counts["resample_correlation"],
+        "launches": highest_counts["resample_correlation"] + serve_counts["resample_correlation"],
         "max_abs_err": max(errs["resample_correlation"].values()),
         "ms": gather_ms,
         "plain_ms": gather_plain_ms,
@@ -1667,7 +2162,8 @@ def main(argv):
         "route": "cuda",
         "source": "os2d_torch/csrc/hat_resample.cu",
         "replaces": "os2d_tpu/ops/pallas_hat_resample.py:42",
-        "launches": main_counts["hat_resample_correlation"],
+        "launches": (main_counts["hat_resample_correlation"]
+                     + serve_counts["hat_resample_correlation"]),
         "max_abs_err": max(errs["hat_resample_correlation"].values()),
         "ms": hat_ms,
         "plain_ms": hat_plain_ms,
@@ -1752,6 +2248,7 @@ def profile_run(phase, fn, untraced_s):
     for ms, key, _ in rows:
         families[kernel_family(key)] = families.get(kernel_family(key), 0.0) + ms
     emit({"phase": phase, "traced_wall_ms": wall_ms, "device_ms": device_ms,
+          "device_launches": sum(r[2] for r in rows),
           "untraced_ms": untraced_s * 1e3,
           "device_idle_share": (1 - device_ms / (untraced_s * 1e3)) if rows else None,
           "families_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),

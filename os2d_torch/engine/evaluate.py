@@ -203,9 +203,10 @@ class Evaluator:
     `prescreen_pruned` counts the (batch, class) pairs that the prescreen
     skipped since the Evaluator was made."""
 
-    def __init__(self, model, cfg):
+    def __init__(self, model, cfg, logger_prefix="OS2D.eval"):
         self.model = model
         self.cfg = cfg
+        self.logger = logging.getLogger(logger_prefix)
         self.prescreen_pruned = 0
 
     def build_class_heads(self, class_images: List, class_image_augmentation: str = ""):

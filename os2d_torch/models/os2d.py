@@ -194,3 +194,12 @@ def fold_inference_params(model: Os2dModel) -> Os2dModel:
     folded.transform_net = fold_batchnorm_transform_net(model.transform_net)
     folded.folded = True
     return folded.train_mode(False)
+
+
+# the checkpoint cascade of os2d_tpu/models/os2d.py:210-331 lives in
+# models/checkpoint.py; it is re-exported here, where the JAX package has it
+from .checkpoint import (  # noqa: E402
+    import_os2d_torch_checkpoint,
+    import_weakalign_checkpoint,
+    load_checkpoint_file,
+)

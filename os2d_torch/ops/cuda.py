@@ -6,7 +6,9 @@ Each source in `os2d_torch/csrc/` is compiled by `nvcc` for Hopper
 The library's file name carries a hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing is built when a module is
-imported: the first launch (or `build_all`) builds.
+imported: the first launch (or `build_all`) builds. Building and loading
+hold one lock of the module, so threads that launch a kernel for the first
+time at once (a server's request threads) build and load each library once.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -25,6 +28,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# held while nvcc writes a library and while a kernel loads one; reentrant,
+# since a kernel's first launch builds through build_all
+_BUILD_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -52,54 +58,57 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
     """Compile every source whose library is missing, all nvcc processes
     started together, and wait for each. Returns {source: compiler output}
     (ptxas register and shared-memory report). Raises on any failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for source in sources:
-        target = library_path(source)
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
-        procs[source] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, target)
-    logs, failed = {}, []
-    for source, (proc, tmp, target) in procs.items():
-        logs[source] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"{source} (exit {proc.returncode}):\n{logs[source]}")
-        else:
-            os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return logs
+    with _BUILD_LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for source in sources:
+            target = library_path(source)
+            if target.exists():
+                continue
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+            procs[source] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, target)
+        logs, failed = {}, []
+        for source, (proc, tmp, target) in procs.items():
+            logs[source] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{source} (exit {proc.returncode}):\n{logs[source]}")
+            else:
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return logs
 
 
 class CudaKernel:
     """One C entry point of one CUDA source, loaded at first launch.
 
-    `launches` counts the launches this object made; it is a plain integer
-    that a caller may reset and read to show which kernels a run went
-    through."""
+    `launches` counts the launches this object made, from any thread; a
+    caller may reset and read it to show which kernels a run went through."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._lib = None
         self._fn = None
 
     def _function(self):
         if self._fn is None:
-            build_all([self.source])
-            lib = ctypes.CDLL(str(library_path(self.source)))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            lib.os2d_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.os2d_cuda_error_string.restype = ctypes.c_char_p
-            self._lib, self._fn = lib, fn
+            with _BUILD_LOCK:
+                if self._fn is None:
+                    build_all([self.source])
+                    lib = ctypes.CDLL(str(library_path(self.source)))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    lib.os2d_cuda_error_string.argtypes = [ctypes.c_int]
+                    lib.os2d_cuda_error_string.restype = ctypes.c_char_p
+                    self._lib, self._fn = lib, fn
         return self._fn
 
     def launch(self, *args) -> None:
@@ -108,4 +117,5 @@ class CudaKernel:
         if code != 0:
             message = self._lib.os2d_cuda_error_string(code).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {code} ({message})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

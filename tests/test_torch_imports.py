@@ -1,8 +1,9 @@
 """Import and fallback hygiene of the PyTorch port.
 
 - No file of os2d_torch, nor chip_smoke.py, nor a tool of the port
-  (tools/*torch*.py, the mAP gate's twin among them) imports jax, jaxlib or
-  os2d_tpu.
+  (tools/*torch*.py, the mAP gate's twin among them) imports jax, jaxlib,
+  optax, orbax or os2d_tpu; the HTTP app imports nothing outside the port
+  and the standard library but fastapi.
 - The kernel wrappers (the fp32 gather, the bf16 hat resample and the
   resample's backward) have no `except` that could turn a failed kernel into
   a silent CPU fallback.
@@ -18,7 +19,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "os2d_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted((ROOT / "tools").glob("*torch*.py")))
-FORBIDDEN = ("jax", "jaxlib", "os2d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "os2d_tpu")
+# builds its model when imported (uvicorn imports it for `app`) and needs
+# fastapi: tests/test_torch_app.py imports it with a stub fastapi
+APP = ROOT / "os2d_torch" / "api" / "app.py"
 
 
 def _imported_modules(path):
@@ -59,9 +63,16 @@ def test_port_modules_import():
     import importlib
 
     for path in PORT_FILES:
-        if path.parent != ROOT:
+        if path.parent != ROOT and path != APP:
             name = ".".join(path.relative_to(ROOT).with_suffix("").parts)
             importlib.import_module(name.removesuffix(".__init__"))
+
+
+def test_app_imports_only_the_port_and_fastapi():
+    import sys
+
+    outside = {m.split(".")[0] for m in _imported_modules(APP)} - {"os2d_torch", "fastapi"}
+    assert outside <= set(sys.stdlib_module_names), outside
 
 
 def test_model_defaults_to_cuda():

@@ -403,3 +403,48 @@ def test_score_pyramid_launches_once_per_level_and_chunk(precision, kernel, cuda
         for key in ("loc", "cls", "corners"):
             torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4,
                                        atol=1e-2 if key == "corners" else 1e-4)
+
+
+# the serving shapes: detect() of a 4:3 image at the service's 1500-px target
+# (B=1, fm 71x94) and detect_batch on the 1500x1500 canvas (B=8, fm 94x94),
+# 16 classes; neither width is a multiple of the tile's 32 columns
+SERVING_SHAPES = [(1, 16, 71, 94), (8, 16, 94, 94)]
+
+
+@pytest.mark.parametrize("shape,kind", [(s, k) for s in SERVING_SHAPES for k in KINDS])
+def test_hat_kernel_bit_equal_at_serving_shapes(shape, kind, cuda_gen):
+    corr, px, py, mask_t = _inputs(*shape, cuda_gen, kind)
+    got = hat_resample.resample_correlation_hat(corr[..., :121], px, py, mask_t)
+    torch.cuda.synchronize()
+    want = hat_resample_reference(corr[..., :121], px, py, mask_t)
+    torch.testing.assert_close(got, want, rtol=HAT_RTOL, atol=HAT_ATOL)
+    assert torch.equal(got, want)
+
+
+def test_service_on_the_card_matches_the_cpu(cuda_gen):
+    """A DetectionService on a card model launches the hat kernel once per
+    dispatch (one level, one class chunk) and answers as on the CPU."""
+    import numpy as np
+    from PIL import Image
+
+    from os2d_torch.api import service as service_mod
+    from os2d_torch.models import Os2dModel
+
+    rng = np.random.RandomState(0)
+    patch = np.kron(rng.randint(0, 255, (30, 30, 3), np.uint8), np.ones((8, 8, 1), np.uint8))
+    scene = rng.randint(0, 60, (480, 640, 3), np.uint8)
+    scene[112:352, 48:288] = patch
+    card = Os2dModel()
+    cpu = Os2dModel(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    before = hat_resample.KERNEL.launches
+    got = service_mod.DetectionService(card, score_threshold=0.3).detect(
+        Image.fromarray(scene), [Image.fromarray(patch)])
+    assert hat_resample.KERNEL.launches == before + 1
+    want = service_mod.DetectionService(cpu, score_threshold=0.3).detect(
+        Image.fromarray(scene), [Image.fromarray(patch)])
+    assert len(got["scores"]) == len(want["scores"]) > 0
+    scale = np.array([640, 480, 640, 480])
+    ws, wb = np.array(want["scores"]), np.array(want["bboxes"]) * scale
+    for score, box in zip(got["scores"], np.array(got["bboxes"]) * scale):
+        assert ((np.abs(ws - score) <= 1e-4) & (np.abs(wb - box).max(-1) <= 1e-2)).any()
