@@ -163,6 +163,26 @@ Phases, each printing one JSON line:
               chunks under the prescreen. Timed after warm-up: sequential
               requests (median, p99 ms, requests/s) and 8 clients x 8
               requests through the batcher (img/s, median, p99 ms).
+ 22. distributed  the mesh (os2d_torch/parallel), each rank a process of its
+              own (parallel.spawn.run_local_group, a deadline on each group):
+              (a) one nccl rank on cuda:0 takes DIST_STEPS data-parallel
+              TrainSteps at phase 10's recipe (batch 4, default tier,
+              margin_pos 1.0) from the weights of the plain TrainStep that
+              this process takes on the same batches: the loss terms within
+              rtol 2e-5, weights within rtol 1e-4, atol 1e-6 (the gradient
+              norm is reported beside the spread of a second plain run: the
+              backward's atomic adds move it); s/step of the
+              data-parallel and the plain step in turns; then phase 4's
+              planted eval at "highest" sharded by classes: mAP@0.50 1.0 as
+              unsharded, the packed detections of the planted batch within
+              scores 1e-5, boxes 1e-2 px, valid flags equal. (b) two gloo
+              ranks share cuda:0 (NCCL refuses two ranks on one device): the
+              same steps at 2 images per rank, losses as in (a), the ranks'
+              weights equal to the bit; the eval sharded by classes and by
+              images, held as in (a); s/step per rank (two processes on one
+              card: no measure of scaling). Each rank counts its launches
+              and returns them: the hat kernel and the backward DIST_STEPS
+              times in each rank's steps, the gather in each eval.
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
 entry point that enqueues a memset, a scatter kernel and a transpose
 kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
@@ -173,10 +193,11 @@ on one point) and the training shape (B=4, C=16, 38x38, T=121 of 225) on
 uniform, near-identity, exact-identity and collapsed inputs.
 Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-19
 (each dispatch of phase 14) and read just after it, around each step of
-phase 17 and each call of phase 21; a phase whose kernel was not launched
-fails. The kernels line counts the launches of the timed dispatches of
-phases 6 (hat) and 7 (gather) and of phase 10's loop (backward), with
-those of phase 21 added to the hat and the gather. Then one
+phase 17, each call of phase 21 and, in each rank of phase 22, its steps
+and each eval; a phase whose kernel was not launched fails. The kernels
+line counts the launches of the timed dispatches of phases 6 (hat) and 7
+(gather) and of phase 10's loop (backward), with those of phase 21 added
+to the hat and the gather and those of phase 22's ranks to all three. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
 exits 1.
@@ -293,6 +314,19 @@ BF16_STEP_RULE = 3.0
 # level, 33 class rows, pre_top_k 1024, top_k 256) and a per-row NMS over
 # every anchor of a bench image (B=1, G=2, K=39,580)
 NMS_G, NMS_ROW_G = 33, 2
+# phase distributed: DIST_STEPS data-parallel steps from seed DIST_SEED on
+# global batches of the train recipe, held to the plain step (losses within
+# DIST_LOSS_RTOL, weights within DIST_PARAM_RTOL/ATOL); the planted eval's
+# packed detections within DIST_SCORE_ATOL and DIST_BOX_ATOL px of the
+# unsharded run's; s/step over DIST_TIMED_ROUNDS rounds; each group of
+# ranks has DIST_TIMEOUT_S to finish
+DIST_STEPS, DIST_SEED, DIST_EVAL_BATCH, DIST_TIMED_ROUNDS = 3, 2, 2, 2
+DIST_LOSS_RTOL, DIST_PARAM_RTOL, DIST_PARAM_ATOL = 2e-5, 1e-4, 1e-6
+DIST_SCORE_ATOL, DIST_BOX_ATOL = 1e-5, 1e-2
+DIST_TIMEOUT_S = 300
+# what prepare_batch_arrays reads of a train batch, sent to the ranks
+DIST_BATCH_KEYS = ("images", "class_images", "class_ids", "gt_boxes", "gt_labels",
+                   "gt_difficult", "gt_valid", "img_size")
 
 
 def emit(obj):
@@ -987,6 +1021,314 @@ def checkpoint_and_serve(counts, device="cuda", profile=False):
         profile_run("profile_serve_batch", lambda: service.detect_batch(batch_images, catalog),
                     float(np.median(batch_times)))
     return serve_launches
+
+
+def _state_digest(model):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _eval_setup(device, root, df):
+    """Phase distributed's eval: phase 4's planted set and recipe at the
+    "highest" tier (the gather kernel), as a loader with both scenes in one
+    batch, a model of seed 0 on `device`, and the batch's detect inputs."""
+    import numpy as np
+
+    from os2d_torch.data.dataloader import DataloaderOneShotDetection
+    from os2d_torch.data.dataset import DatasetOneShotDetection
+    from os2d_torch.models import Os2dConfig, Os2dModel
+
+    dataset = DatasetOneShotDetection(
+        df, gt_path=os.path.join(root, "classes", "images"), image_path=os.path.join(root, "src"),
+        name="planted", image_size=640, eval_scale=640, cache_images=True)
+    loader = DataloaderOneShotDetection(dataset, batch_size=DIST_EVAL_BATCH,
+                                        pyramid_scales_eval=EVAL_PYRAMID)
+    _, images, sizes, inv, _ = next(iter(loader.make_raw_iterator_for_all_images(
+        DIST_EVAL_BATCH)))
+    model = Os2dModel(Os2dConfig(resample_precision="highest"), device=device, seed=0)
+    return loader, model, (np.stack(images), sizes, inv[0])
+
+
+def _dist_eval_cfg(axis):
+    from os2d_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.eval.mAP_iou_thresholds = [0.5]
+    cfg.eval.class_image_augmentation = EVAL_TTA
+    cfg.eval.nms_score_threshold = EVAL_SCORE_THRESHOLD
+    cfg.eval.batch_size = DIST_EVAL_BATCH
+    cfg.tpu.eval_pre_top_k = 256
+    cfg.tpu.eval_top_k = 32
+    cfg.tpu.eval_shard_axis = axis
+    return cfg
+
+
+def _detect_and_evaluate(model, loader, batch, cfg, mesh=None):
+    """The planted batch through Evaluator.detect_images (packed, on the
+    host) and the planted set through evaluate() (its mAP@0.50)."""
+    from os2d_torch.engine.evaluate import Evaluator, evaluate
+
+    evaluator = Evaluator(model, cfg, mesh=mesh)
+    class_images, _, _ = loader.get_all_class_images()
+    head, views = evaluator.build_class_heads(class_images, cfg.eval.class_image_augmentation)
+    images, sizes, inv = batch
+    packed = evaluator.detect_images(images, head, sizes, inv, loader.img_normalization, views)
+    results = evaluate(loader, model, cfg, mesh=mesh)
+    return packed.cpu().numpy(), results["mAP@0.50"]
+
+
+def distributed_rank(mesh, inputs):
+    """One rank of phase distributed, in a process of its own: DIST_STEPS
+    data-parallel TrainSteps at the default tier from the phase's start
+    weights on its global batches, then, in turns with the plain step on the
+    same weights when inputs["time_plain"], the timed steps; then the eval of
+    each axis in inputs["eval_axes"] at "highest". Returns the metrics, a
+    digest of the weights, the packed detections and mAPs, s/step and each
+    part's kernel launches (rank 0 writes its final weights to
+    inputs["final_path"])."""
+    import numpy as np
+    import torch
+
+    from os2d_torch.engine.objective import ObjectiveConfig
+    from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.engine.train import TrainStep, prepare_batch_arrays, trainable_parameters
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.ops import hat_resample, resample, resample_grad
+
+    kernels = {"resample_correlation": resample.KERNEL,
+               "hat_resample_correlation": hat_resample.KERNEL,
+               "resample_correlation_backward": resample_grad.KERNEL}
+
+    def reset_counts():
+        for k in kernels.values():
+            k.launches = 0
+
+    def read_counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    device, cfg = mesh.device, inputs["train_cfg"]
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "size": mesh.size, "device": str(device),
+           "backend": torch.distributed.get_backend()}
+    model = Os2dModel(Os2dConfig(), device=device)
+    model.load_state_dict(torch.load(inputs["start_path"], weights_only=True))
+    optimizer = create_optimizer(cfg.train.optim, trainable_parameters(model, cfg.train))
+    objective = ObjectiveConfig(margin_pos=FIRST_STEP_MARGIN_POS)
+    step = TrainStep(model, objective, optimizer, cfg.train, mesh=mesh)
+    prepared = [prepare_batch_arrays(b, device) for b in inputs["batches"]]
+    reset_counts()
+    out["metrics"] = [step(*p) for p in prepared]
+    sync()
+    out["train_launches"] = read_counts()
+    out["digest"] = _state_digest(model)
+    if mesh.rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                   inputs["final_path"])
+
+    # s/step, after the steps above warmed both up: the data-parallel step
+    # and, on one rank, the plain step in turns (dp, plain, plain, dp)
+    plain = TrainStep(model, objective, optimizer, cfg.train) if inputs["time_plain"] else None
+    order = ["dp", "plain", "plain", "dp"] if plain is not None else ["dp", "dp"]
+    times = {"dp": [], "plain": []}
+    for name in order * DIST_TIMED_ROUNDS:
+        sync()
+        t0 = time.perf_counter()
+        (step if name == "dp" else plain)(*prepared[0])
+        sync()
+        times[name].append(time.perf_counter() - t0)
+    out["step_s"] = {k: v for k, v in times.items() if v}
+    out["median_step_s"] = {k: float(np.median(v)) for k, v in times.items() if v}
+    del model, step, plain, optimizer, prepared
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    loader, eval_model, batch = _eval_setup(device, inputs["eval_root"], inputs["eval_df"])
+    out["eval"] = {}
+    for axis in inputs["eval_axes"]:
+        reset_counts()
+        packed, map50 = _detect_and_evaluate(eval_model, loader, batch, _dist_eval_cfg(axis), mesh)
+        sync()
+        out["eval"][axis] = {"packed": packed, "mAP@0.50": map50, "launches": read_counts()}
+    return out
+
+
+def _within(got, want, rtol, atol):
+    """max over elements of |got - want| - (atol + rtol |want|): <= 0 holds."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def distributed_phase(train_cfg, batches, require_launches, device="cuda"):
+    """Phase 22 in a directory of its own under build/ (start and final
+    weights, the planted set), removed whatever happens."""
+    from os2d_torch.ops.cuda import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        return _distributed_phase(work, train_cfg, batches, require_launches, device)
+
+
+def _distributed_phase(work, train_cfg, batches, require_launches, device):
+    """Phase 22 (distributed); returns the kernels' launches in its ranks,
+    summed. (a) one nccl rank: the data-parallel TrainStep against the plain
+    step in this process from the same weights on the same global batches,
+    then the class-sharded eval. (b) two ranks sharing cuda:0 over gloo: the
+    same steps at 2 images per rank, then the class- and image-sharded
+    evals. Any failed group, rank, check or count ends the run. With
+    device="cpu" every rank runs on the CPU over gloo (the kernels' plain
+    versions: no launch to count)."""
+    import numpy as np
+    import torch
+
+    from os2d_torch.engine.objective import ObjectiveConfig
+    from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.engine.train import TrainStep, prepare_batch_arrays, trainable_parameters
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.parallel.spawn import run_local_group
+
+    # the plain single-process reference, twice from the start weights that
+    # the ranks load (the second run shows the steps' own run-to-run spread)
+    start_path = os.path.join(work, "start.pth")
+    runs = []
+    for _ in range(2):
+        ref_model = Os2dModel(Os2dConfig(), device=device, seed=DIST_SEED)
+        if not runs:
+            torch.save({k: v.detach().cpu() for k, v in ref_model.state_dict().items()},
+                       start_path)
+        ref_opt = create_optimizer(train_cfg.train.optim,
+                                   trainable_parameters(ref_model, train_cfg.train))
+        ref_step = TrainStep(ref_model, ObjectiveConfig(margin_pos=FIRST_STEP_MARGIN_POS),
+                             ref_opt, train_cfg.train)
+        runs.append(([ref_step(*prepare_batch_arrays(b, device)) for b in batches], ref_model))
+    (ref_metrics, ref_model), (rerun_metrics, _) = runs
+    ref_final = {k: v.detach().clone() for k, v in ref_model.state_dict().items()}
+    del runs, ref_model, ref_step, ref_opt
+
+    eval_root = os.path.join(work, "planted")
+    eval_df = write_planted_dataset(eval_root)
+    loader, eval_model, batch = _eval_setup(device, eval_root, eval_df)
+    ref_packed, ref_map = _detect_and_evaluate(eval_model, loader, batch,
+                                               _dist_eval_cfg("classes"))
+    del loader, eval_model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rank_device = "cuda:0" if device == "cuda" else device
+
+    inputs = {"train_cfg": train_cfg, "batches": batches, "start_path": start_path,
+              "eval_root": eval_root, "eval_df": eval_df}
+    t0 = time.perf_counter()
+    ranks_a = run_local_group(distributed_rank, 1, (dict(
+        inputs, final_path=os.path.join(work, "final_a.pth"), time_plain=True,
+        eval_axes=["classes"]),), devices=[rank_device],
+        backend="nccl" if device == "cuda" else "gloo", timeout_s=DIST_TIMEOUT_S)
+    a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks_b = run_local_group(distributed_rank, 2, (dict(
+        inputs, final_path=os.path.join(work, "final_b.pth"), time_plain=False,
+        eval_axes=["classes", "images"]),), devices=[rank_device] * 2, backend="gloo",
+        timeout_s=DIST_TIMEOUT_S)
+    b_s = time.perf_counter() - t0
+
+    def rel_err(ranks, keys):
+        return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                   for r in ranks for got, want in zip(r["metrics"], ref_metrics) for k in keys)
+
+    # the loss terms are held; the gradient norm is reported: the backward's
+    # fp32 atomic adds move it between two runs of the plain step alone
+    loss_keys = [k for k in ref_metrics[0] if k != "grad_norm"]
+
+    def weights_err(path):
+        got = torch.load(path, weights_only=True)
+        return max(_within(got[k].to(device), ref_final[k], DIST_PARAM_RTOL, DIST_PARAM_ATOL)
+                   for k in ref_final)
+
+    def packed_agree(got, want):
+        valid = want[..., 5] > 0.5
+        return (bool(np.array_equal(got[..., 5], want[..., 5])) and bool(valid.any())
+                and float(np.abs(got[valid][:, 4] - want[valid][:, 4]).max()) <= DIST_SCORE_ATOL
+                and float(np.abs(got[valid][:, :4] - want[valid][:, :4]).max()) <= DIST_BOX_ATOL)
+
+    a, b_ranks = ranks_a[0], ranks_b
+    report = {
+        "phase": "distributed", "steps": DIST_STEPS, "global_batch": len(batches[0]["images"]),
+        "recipe": "get_default_cfg() train at the default tier, margin_pos "
+                  f"{FIRST_STEP_MARGIN_POS}; eval: phase 4's planted set at highest",
+        "nvidia_smi": nvidia_smi_line() if device == "cuda" else None,
+        "reference_metrics": ref_metrics,
+        "plain_rerun_grad_norm_max_rel_err": rel_err([{"metrics": rerun_metrics}],
+                                                     ["grad_norm"]),
+        "plain_rerun_loss_max_rel_err": rel_err([{"metrics": rerun_metrics}], loss_keys),
+        "a_nccl_1_rank": {"backend": a["backend"], "metrics": a["metrics"],
+                          "loss_max_rel_err": rel_err([a], loss_keys),
+                          "grad_norm_max_rel_err": rel_err([a], ["grad_norm"]),
+                          "weights_excess_over_tol": weights_err(os.path.join(work,
+                                                                              "final_a.pth")),
+                          "mAP@0.50": a["eval"]["classes"]["mAP@0.50"],
+                          "packed_agree": packed_agree(a["eval"]["classes"]["packed"],
+                                                       ref_packed),
+                          "step_s": a["step_s"], "median_step_s": a["median_step_s"],
+                          "train_launches": a["train_launches"],
+                          "eval_launches": a["eval"]["classes"]["launches"], "seconds": a_s},
+        "b_gloo_2_ranks_on_cuda0": {
+            "backend": b_ranks[0]["backend"], "metrics": [r["metrics"] for r in b_ranks],
+            "loss_max_rel_err": rel_err(b_ranks, loss_keys),
+            "grad_norm_max_rel_err": rel_err(b_ranks, ["grad_norm"]),
+            "weights_bit_equal_across_ranks": len({r["digest"] for r in b_ranks}) == 1,
+            "weights_excess_over_tol": weights_err(os.path.join(work, "final_b.pth")),
+            "eval": {axis: {"mAP@0.50": [r["eval"][axis]["mAP@0.50"] for r in b_ranks],
+                            "packed_agree": [packed_agree(r["eval"][axis]["packed"], ref_packed)
+                                             for r in b_ranks],
+                            "launches": [r["eval"][axis]["launches"] for r in b_ranks]}
+                     for axis in ("classes", "images")},
+            "median_step_s": [r["median_step_s"] for r in b_ranks],
+            "train_launches": [r["train_launches"] for r in b_ranks], "seconds": b_s,
+            "note": "two processes share one card: no measure of scaling"},
+        "unsharded_mAP@0.50": ref_map, "loss_rtol": DIST_LOSS_RTOL,
+        "weights_rtol_atol": [DIST_PARAM_RTOL, DIST_PARAM_ATOL],
+        "score_atol": DIST_SCORE_ATOL, "box_atol_px": DIST_BOX_ATOL,
+    }
+    emit(report)
+
+    ra, rb = report["a_nccl_1_rank"], report["b_gloo_2_ranks_on_cuda0"]
+    failures = []
+    if not ra["loss_max_rel_err"] <= DIST_LOSS_RTOL:
+        failures.append(f"(a) losses off the plain step by {ra['loss_max_rel_err']}")
+    if not ra["weights_excess_over_tol"] <= 0:
+        failures.append(f"(a) weights off the plain step's by {ra['weights_excess_over_tol']} "
+                        "over the tolerance")
+    if not (ra["mAP@0.50"] == ref_map == 1.0 and ra["packed_agree"]):
+        failures.append(f"(a) class-sharded eval: mAP {ra['mAP@0.50']} against {ref_map}, "
+                        f"packed agree {ra['packed_agree']}")
+    if not rb["loss_max_rel_err"] <= DIST_LOSS_RTOL:
+        failures.append(f"(b) losses off the plain step by {rb['loss_max_rel_err']}")
+    if not rb["weights_bit_equal_across_ranks"]:
+        failures.append("(b) the ranks' weights differ")
+    for axis, e in rb["eval"].items():
+        if not (all(m == ref_map for m in e["mAP@0.50"]) and all(e["packed_agree"])):
+            failures.append(f"(b) {axis}-sharded eval: mAP {e['mAP@0.50']} against {ref_map}, "
+                            f"packed agree {e['packed_agree']}")
+    if failures:
+        raise SystemExit("distributed: " + "; ".join(failures))
+
+    totals = dict.fromkeys(a["train_launches"], 0)
+    for r in [a] + b_ranks:
+        require_launches("distributed train", r["train_launches"], "hat_resample_correlation",
+                         DIST_STEPS)
+        require_launches("distributed train", r["train_launches"],
+                         "resample_correlation_backward", DIST_STEPS)
+        for axis, e in r["eval"].items():
+            require_launches(f"distributed eval {axis}", e["launches"], "resample_correlation")
+        for counts in [r["train_launches"]] + [e["launches"] for e in r["eval"].values()]:
+            for k, v in counts.items():
+                totals[k] += v
+    return totals
 
 
 def main(argv):
@@ -2135,6 +2477,11 @@ def main(argv):
         reset=reset_counts, read=read_counts, require=require_launches),
         profile="--profile" in argv)
 
+    # ---- 22. the mesh: data-parallel steps and sharded evals in other processes ----
+    dist_batches = [train_loader.get_batch(i % len(train_loader)) for i in range(DIST_STEPS)]
+    dist_counts = distributed_phase(
+        train_cfg, [{k: b[k] for k in DIST_BATCH_KEYS} for b in dist_batches], require_launches)
+
     if "--profile" in argv:
         profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),
                     main_median)
@@ -2150,7 +2497,8 @@ def main(argv):
         "route": "cuda",
         "source": "os2d_torch/csrc/resample.cu",
         "replaces": "os2d_tpu/ops/pallas_resample.py:24",
-        "launches": highest_counts["resample_correlation"] + serve_counts["resample_correlation"],
+        "launches": (highest_counts["resample_correlation"] + serve_counts["resample_correlation"]
+                     + dist_counts["resample_correlation"]),
         "max_abs_err": max(errs["resample_correlation"].values()),
         "ms": gather_ms,
         "plain_ms": gather_plain_ms,
@@ -2163,7 +2511,8 @@ def main(argv):
         "source": "os2d_torch/csrc/hat_resample.cu",
         "replaces": "os2d_tpu/ops/pallas_hat_resample.py:42",
         "launches": (main_counts["hat_resample_correlation"]
-                     + serve_counts["hat_resample_correlation"]),
+                     + serve_counts["hat_resample_correlation"]
+                     + dist_counts["hat_resample_correlation"]),
         "max_abs_err": max(errs["hat_resample_correlation"].values()),
         "ms": hat_ms,
         "plain_ms": hat_plain_ms,
@@ -2175,7 +2524,8 @@ def main(argv):
         "route": "cuda",
         "source": "os2d_torch/csrc/resample_backward.cu",
         "replaces": "os2d_tpu/ops/sampling.py:147",
-        "launches": loop_counts["resample_correlation_backward"],
+        "launches": (loop_counts["resample_correlation_backward"]
+                     + dist_counts["resample_correlation_backward"]),
         "max_abs_err": max(max(e.values())
                            for e in errs["resample_correlation_backward"].values()),
         "ms": bwd_ms,

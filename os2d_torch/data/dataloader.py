@@ -540,12 +540,74 @@ class DataloaderOneShotDetection:
                 yield batch_ids, pyramids, inverse_scales, transforms, initial_sizes
 
 
-def build_train_dataloader_from_config(cfg, dataset_train, img_normalization=None, seed=None,
-                                       logger_prefix="OS2D.train"):
+def build_eval_dataloaders_from_cfg(cfg, img_normalization=None, datasets_for_eval=(),
+                                    data_path="", logger_prefix="OS2D.eval"):
+    """Mirror of os2d/data/dataloader.py:26-84 (os2d_tpu/data/dataloader.py:
+    668-712): the datasets cfg.eval.dataset_names at cfg.eval.dataset_scales
+    under `data_path` (one name or one scale repeats for all), then
+    `datasets_for_eval` at their own scales, each in an eval loader whose
+    pyramid is cfg.eval.scales_of_image_pyramid at the dataset's scale."""
+    from .dataset import build_dataset_by_name
+
+    datasets_val, eval_scales = [], []
+    if data_path:
+        if len(cfg.eval.dataset_scales) == 1:
+            scales = list(cfg.eval.dataset_scales) * len(cfg.eval.dataset_names)
+            names = cfg.eval.dataset_names
+        elif len(cfg.eval.dataset_names) == 1:
+            names = list(cfg.eval.dataset_names) * len(cfg.eval.dataset_scales)
+            scales = cfg.eval.dataset_scales
+        else:
+            names, scales = cfg.eval.dataset_names, cfg.eval.dataset_scales
+        if len(names) != len(scales):
+            raise ValueError(f"{len(names)} eval dataset names for {len(scales)} scales")
+        for name, scale in zip(names, scales):
+            if name:
+                datasets_val.append(build_dataset_by_name(
+                    data_path, name, eval_scale=scale, cache_images=cfg.eval.cache_images,
+                    logger_prefix=logger_prefix))
+                eval_scales.append(scale)
+    for d in datasets_for_eval:
+        datasets_val.append(d)
+        eval_scales.append(d.eval_scale)
+
+    loaders = []
+    for dataset, eval_scale in zip(datasets_val, eval_scales):
+        evaluation_scale = eval_scale / dataset.image_size
+        loaders.append(DataloaderOneShotDetection(
+            dataset=dataset, batch_size=cfg.eval.batch_size,
+            img_normalization=img_normalization, gt_image_size=cfg.model.class_image_size,
+            pyramid_scales_eval=[p * evaluation_scale for p in cfg.eval.scales_of_image_pyramid],
+            do_augmentation=False,
+            class_shape_palette=None if cfg.eval.get("exact_class_shapes", False) else "default",
+            logger_prefix=logger_prefix))
+    return loaders
+
+
+def build_train_dataloader_from_config(cfg, img_normalization=None, dataset_train=None,
+                                       data_path="", seed=None, logger_prefix="OS2D.train"):
     """Mirror of os2d/data/dataloader.py:87-143 (os2d_tpu/data/dataloader.py:
-    714-762) over a given dataset (the builders by dataset name need dataset
-    files). Train batches carry one square class-image shape and uint8
-    images. Returns (dataloader, [a subset of the train set for eval])."""
+    714-762): the train loader over `dataset_train`, or over the dataset
+    cfg.train.dataset_name at cfg.train.dataset_scale under `data_path`
+    (`build_dataset_by_name`). The form of earlier versions of this port,
+    (cfg, dataset_train, img_normalization=None, seed=None), still works: a
+    dataset in the second place is taken as dataset_train. Train batches
+    carry one square class-image shape and uint8 images; the loader's
+    random draws are seeded from `seed`, else from the global `random`
+    stream. Returns (dataloader, [a subset of the train set for eval])."""
+    if isinstance(img_normalization, DatasetOneShotDetection):
+        if isinstance(dataset_train, DatasetOneShotDetection):
+            raise TypeError("two train datasets given")
+        img_normalization, dataset_train = dataset_train, img_normalization
+    if dataset_train is None:
+        from .dataset import build_dataset_by_name
+
+        if not data_path:
+            raise ValueError("build_train_dataloader_from_config needs dataset_train or "
+                             "data_path")
+        dataset_train = build_dataset_by_name(
+            data_path, cfg.train.dataset_name, eval_scale=cfg.train.dataset_scale,
+            cache_images=cfg.train.cache_images, no_image_reading=not cfg.train.do_training)
     random_crop_size = FeatureMapSize(w=cfg.train.augment.train_patch_width,
                                       h=cfg.train.augment.train_patch_height)
     evaluation_scale = dataset_train.eval_scale / dataset_train.image_size

@@ -19,7 +19,11 @@
   returns the raw per-level outputs (corners too on request): the
   host-pyramid path of `evaluate` (cfg.tpu.device_side_pyramid=False) and
   hard-patch mining (engine/mining.py) run on it.
-Not ported yet: the heatmaps, visualisation, int8 class banks and meshes.
+- Over a mesh (parallel/mesh.py) the work shards over the ranks as
+  cfg.tpu.eval_shard_axis says, classes (each rank scores its slice of every
+  class chunk) or images (each rank detects its rows of the batch), and
+  every rank ends with the unsharded run's detections and mAP.
+Not ported yet: the heatmaps, visualisation and int8 class banks.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..models.head import ClassHead, correlation_gemm
 from ..models.os2d import fold_inference_params
 from ..ops.geometry import l2_normalize_channels
 from ..ops.sampling import resize_bilinear_antialias
+from ..parallel.mesh import all_gather_cat, all_gather_chunked, local_rows, primary_host
 from ..structures.feature_map import FeatureMapSize
 from .decode import decode_pyramid, default_boxes_for_image_size
 from .objective import compute_objective
@@ -201,13 +206,47 @@ class Evaluator:
     """Multiscale one-shot detection with a model on one device.
 
     `prescreen_pruned` counts the (batch, class) pairs that the prescreen
-    skipped since the Evaluator was made."""
+    skipped since the Evaluator was made.
 
-    def __init__(self, model, cfg, logger_prefix="OS2D.eval"):
+    With a `mesh` every rank calls each method with the same arguments and
+    gets the same result, computed in shards (os2d_tpu/engine/evaluate.py:
+    293-343, 479-540). cfg.tpu.eval_shard_axis "classes": the class chunk is
+    rounded up to a multiple of the mesh size, each rank runs the head on its
+    slice of every chunk, and the per-class outputs are gathered before the
+    decode, so that the decode and a cross-class NMS see every class; the
+    prescreen shards both of its phases so. "images": each rank detects its
+    rows of the batch (a multiple of the mesh size) and the packed
+    detections are gathered; the prescreen does not apply (its surviving
+    classes are chosen for the whole batch). `score_pyramid` shards classes
+    under either axis, as JAX's does."""
+
+    def __init__(self, model, cfg, logger_prefix="OS2D.eval", mesh=None):
         self.model = model
         self.cfg = cfg
         self.logger = logging.getLogger(logger_prefix)
+        self.mesh = mesh
         self.prescreen_pruned = 0
+        self.shard_axis = str(cfg.tpu.eval_shard_axis)
+        if self.shard_axis not in ("classes", "images"):
+            raise ValueError(f"unknown cfg.tpu.eval_shard_axis {self.shard_axis!r}: "
+                             "expected 'classes' or 'images'")
+
+    def _class_chunk(self, shard_classes: bool) -> int:
+        """cfg.tpu.eval_class_chunk; when the classes shard, rounded up to a
+        multiple of the mesh size, so that every rank scores an equal slice
+        of every chunk (os2d_tpu/engine/evaluate.py:373-376, 733-738)."""
+        chunk = int(self.cfg.tpu.eval_class_chunk)
+        if shard_classes:
+            n = self.mesh.size
+            chunk = -(-max(chunk, n) // n) * n
+        return chunk
+
+    def check_image_batch(self, n_images: int) -> None:
+        """Under image sharding the batch must divide over the ranks."""
+        if self.mesh is not None and self.shard_axis == "images" and n_images % self.mesh.size:
+            raise ValueError(
+                f"eval_shard_axis='images' needs the image batch ({n_images}) to be a "
+                f"multiple of the mesh size ({self.mesh.size}); set eval.batch_size accordingly")
 
     def build_class_heads(self, class_images: List, class_image_augmentation: str = ""):
         """Class images (normalized [h, w, 3]) -> (ClassHead, num_views), the
@@ -234,27 +273,34 @@ class Evaluator:
             fms.append(self.model.extract_features(level))
         return fms
 
-    def _score_levels(self, fms, feats, mask, keys=("loc", "cls")):
+    def _score_levels(self, fms, feats, mask, keys=("loc", "cls"), shard_classes=False):
         """Head over class chunks at every level -> {key: [per level]} for the
         head outputs in `keys`: loc [B, C, 4, A_l], cls [B, C, A_l], corners
         [B, C, 8, A_l]. Chunks of cfg.tpu.eval_class_chunk bound the [B,
         chunk, H, W, 225] correlation tensor; the last chunk is zero-padded to
-        the full size and the padding trimmed."""
-        chunk = int(self.cfg.tpu.eval_class_chunk)
+        the full size and the padding trimmed. With shard_classes each rank
+        of the mesh runs the head on its slice of every chunk, and each
+        output is gathered whole."""
+        mesh = self.mesh if shard_classes else None
+        chunk = self._class_chunk(mesh is not None)
         c_total = feats.shape[0]
-        c_pad = -(-c_total // chunk) * chunk
-        feats = _pad_classes(feats, c_pad)
-        mask = _pad_classes(mask, c_pad)
+        n_chunks = -(-c_total // chunk)
+        feats = _pad_classes(feats, n_chunks * chunk)
+        mask = _pad_classes(mask, n_chunks * chunk)
+        own = slice(0, chunk) if mesh is None else local_rows(mesh, chunk)
         scores = {k: [] for k in keys}
         for fm in fms:
             parts = {k: [] for k in keys}
-            for start in range(0, c_pad, chunk):
-                out = self.model.apply_head(
-                    fm, ClassHead(feats[start:start + chunk], mask[start:start + chunk]))
+            for start in range(0, n_chunks * chunk, chunk):
+                rows = slice(start + own.start, start + own.stop)
+                out = self.model.apply_head(fm, ClassHead(feats[rows], mask[rows]))
                 for k in keys:
                     parts[k].append(out[k])
             for k in keys:
-                scores[k].append(torch.cat(parts[k], dim=1)[:, :c_total])
+                level = torch.cat(parts[k], dim=1)
+                if mesh is not None:
+                    level = all_gather_chunked(mesh, level, n_chunks, dim=1)
+                scores[k].append(level[:, :c_total])
         return scores
 
     @torch.no_grad()
@@ -266,11 +312,12 @@ class Evaluator:
         Args: pyramid_images, per level [B, h_l, w_l, 3] normalized images
         (arrays or tensors). Returns per level a dict of tensors on the
         model's device: loc [B, C, 4, A_l], cls [B, C, A_l] and, with
-        want_corners, corners [B, C, 8, A_l]."""
+        want_corners, corners [B, C, 8, A_l]. Over a mesh the classes shard."""
         keys = ("loc", "cls", "corners") if want_corners else ("loc", "cls")
         fms = [self.model.extract_features(torch.as_tensor(level, device=self.model.device))
                for level in pyramid_images]
-        scores = self._score_levels(fms, class_head.class_feats, class_head.pool_mask, keys)
+        scores = self._score_levels(fms, class_head.class_feats, class_head.pool_mask, keys,
+                                    shard_classes=self.mesh is not None)
         return [{k: scores[k][i] for k in keys} for i in range(len(fms))]
 
     @torch.no_grad()
@@ -292,15 +339,26 @@ class Evaluator:
             returns (packed, {loss name: [B] tensor}) from the same scores
             (`eval_losses`).
         """
+        by_images = self.mesh is not None and self.shard_axis == "images"
+        if by_images:
+            self.check_image_batch(images_u8.shape[0])
+            rows = local_rows(self.mesh, images_u8.shape[0])
+            images_u8 = images_u8[rows]
+            if gt is not None:
+                gt = {k: v[rows] for k, v in gt.items()}
         fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
-        scores = self._score_levels(fms, class_head.class_feats, class_head.pool_mask)
+        scores = self._score_levels(fms, class_head.class_feats, class_head.pool_mask,
+                                    shard_classes=self.mesh is not None and not by_images)
         loc_p, cls_p = scores["loc"], scores["cls"]
         scales = [tuple(s) for s in inverse_scales]
         packed = _decode_and_pack(loc_p, cls_p, list(level_sizes), scales, num_views, self.cfg)
-        if objective_cfg is None:
-            return packed
-        return packed, eval_losses(objective_cfg, self.cfg, loc_p, cls_p, list(level_sizes),
-                                   scales, gt)
+        losses = None if objective_cfg is None else eval_losses(
+            objective_cfg, self.cfg, loc_p, cls_p, list(level_sizes), scales, gt)
+        if by_images:
+            packed = all_gather_cat(self.mesh, packed)
+            if losses is not None:
+                losses = {k: all_gather_cat(self.mesh, v) for k, v in losses.items()}
+        return packed if losses is None else (packed, losses)
 
     def prescreen_applicable(self) -> bool:
         """The no-miss class prescreen is available when the decode threshold is
@@ -309,9 +367,12 @@ class Evaluator:
         cfg.tpu.eval_class_prescreen is on. Under nms_across_classes the
         padded duplicate rows are score-masked to -inf in phase 2 so they
         cannot suppress real detections; pruned classes cannot suppress
-        anything either (they have no detections above the threshold)."""
+        anything either (they have no detections above the threshold).
+        Under image sharding it does not apply (os2d_tpu/engine/evaluate.py:
+        684-700)."""
         return (bool(self.cfg.tpu.eval_class_prescreen)
-                and bool(np.isfinite(float(self.cfg.eval.nms_score_threshold))))
+                and bool(np.isfinite(float(self.cfg.eval.nms_score_threshold)))
+                and (self.mesh is None or self.shard_axis == "classes"))
 
     @torch.no_grad()
     def detect_images_prescreened(self, images_u8, class_head: ClassHead, level_sizes,
@@ -333,7 +394,9 @@ class Evaluator:
         rows, padded to a power-of-two number of class chunks with duplicates
         of row 0 whose scores are masked to -inf; the feature maps stay on the
         device between the phases. Returns the same packed [B, G, K, 6] tensor
-        as detect_images, with pruned classes all-invalid.
+        as detect_images, with pruned classes all-invalid. Over a mesh (class
+        sharding) each rank takes its slice of every chunk in both phases,
+        and the ceilings are gathered, so every rank keeps the same classes.
         """
         cfg = self.cfg
         feats_bank, pool_mask = class_head.class_feats, class_head.pool_mask
@@ -341,22 +404,34 @@ class Evaluator:
         n_groups = c_total // num_views
         threshold = float(cfg.eval.nms_score_threshold)
         top_k = int(cfg.tpu.eval_top_k)
-        chunk = int(cfg.tpu.eval_class_chunk)
+        mesh = self.mesh
+        if mesh is not None and self.shard_axis != "classes":
+            raise ValueError("the class prescreen shards classes; it does not apply under "
+                             "eval_shard_axis='images'")
+        chunk = self._class_chunk(mesh is not None)
         device = self.model.device
         compute_dtype = self.model.compute_dtype
 
         fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
         n_img = fms[0].shape[0]
-        ceil = torch.full((c_total,), float("-inf"), dtype=torch.float32, device=device)
+        n_chunks1 = -(-c_total // chunk)
+        if mesh is None:
+            bank, own = feats_bank, slice(0, chunk)
+        else:  # this rank's slice of every chunk; the zero rows padded in are trimmed
+            bank, own = _pad_classes(feats_bank, n_chunks1 * chunk), local_rows(mesh, chunk)
+        ceil = None
         for fm in fms:
             fmn = l2_normalize_channels(fm, eps=1e-5, dim=-1).reshape(-1, f)
-            for start in range(0, c_total, chunk):
-                feats = feats_bank[start:start + chunk]
+            tops = []
+            for start in range(0, n_chunks1 * chunk, chunk):
+                feats = bank[start + own.start:start + own.stop]
                 # [B*A, n*225]
                 corr = correlation_gemm(fmn, feats.reshape(-1, f), compute_dtype)
-                top = corr.reshape(corr.shape[0], feats.shape[0], -1).amax(dim=(0, 2))
-                ceil[start:start + feats.shape[0]] = torch.maximum(
-                    ceil[start:start + feats.shape[0]], top)
+                tops.append(corr.reshape(corr.shape[0], feats.shape[0], -1).amax(dim=(0, 2)))
+            top = torch.cat(tops)
+            ceil = top if ceil is None else torch.maximum(ceil, top)
+        if mesh is not None:
+            ceil = all_gather_chunked(mesh, ceil[None], n_chunks1, dim=1)[0, :c_total]
         # group ceilings over TTA views; the margin absorbs the rounding
         # difference between the phases
         margin = prescreen_margin(self.model.config.resample_precision,
@@ -378,7 +453,8 @@ class Evaluator:
         row_idx = (sel[:, None] * num_views + np.arange(num_views)).reshape(-1)
         row_idx = np.concatenate([row_idx, np.zeros((c_sel_pad - n_sel_rows,), np.int64)])
         rows = torch.as_tensor(row_idx, device=device)
-        scores = self._score_levels(fms, feats_bank[rows], pool_mask[rows])
+        scores = self._score_levels(fms, feats_bank[rows], pool_mask[rows],
+                                    shard_classes=mesh is not None)
         loc_p, cls_p = scores["loc"], scores["cls"]
         # c_sel_pad need not divide into views: trim to the largest
         # view-aligned row count (the real rows are within it)
@@ -395,10 +471,8 @@ class Evaluator:
         return full
 
 
-def _unported_eval_options(cfg, mesh):
+def _unported_eval_options(cfg):
     unported = []
-    if mesh is not None:
-        unported.append("a mesh")
     viz = cfg.visualization.eval
     for flag in ("show_class_heatmaps", "show_detections", "show_gt_boxes"):
         if bool(viz[flag]):
@@ -433,10 +507,14 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     prescreen is bypassed then: every class row counts as a negative).
     With cfg.tpu.fold_bn the BatchNorms are folded into a copy of the model
     before the class heads are built (os2d_tpu/engine/evaluate.py:1017-1020);
-    the caller's model is left as it was. Options of the JAX package that
+    the caller's model is left as it was. With a `mesh` every rank runs this
+    with its own model (the same weights) and the same loader, the work
+    shards as cfg.tpu.eval_shard_axis says (`Evaluator`), and every rank
+    returns the same results (os2d_tpu/engine/evaluate.py:1003-1022); only
+    rank 0 writes the detections file. Options of the JAX package that
     are not ported raise NotImplementedError.
     """
-    unported = _unported_eval_options(cfg, mesh)
+    unported = _unported_eval_options(cfg)
     if unported:
         raise NotImplementedError("not ported to os2d_torch: " + "; ".join(unported))
     logger = logging.getLogger(f"{logger_prefix}.evaluate")
@@ -446,12 +524,13 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
 
     if bool(cfg.tpu.fold_bn):
         model = fold_inference_params(model)
-    evaluator = Evaluator(model, cfg)
+    evaluator = Evaluator(model, cfg, mesh=mesh)
+    batch_size = max(1, int(cfg.eval.batch_size))
+    evaluator.check_image_batch(batch_size)
     class_images, _, class_ids = dataloader.get_all_class_images()
     class_head, num_views = evaluator.build_class_heads(
         class_images, cfg.eval.class_image_augmentation)
     img_norm = dataloader.img_normalization
-    batch_size = max(1, int(cfg.eval.batch_size))
     device_pyramid = bool(cfg.tpu.device_side_pyramid)
     use_prescreen = device_pyramid and criterion is None and evaluator.prescreen_applicable()
     detect = evaluator.detect_images_prescreened if use_prescreen else evaluator.detect_images
@@ -563,7 +642,7 @@ def _finish_evaluation(predictions, gts, cfg, class_ids, dataset_name, t_start,
     # optional raw-detection dump (reference evaluate.py:136-149; pickle
     # instead of torch.save: everything here is plain numpy)
     save_dir = str(cfg.visualization.eval.path_to_save_detections)
-    if save_dir:
+    if save_dir and primary_host():
         data = {
             "image_ids": list(image_ids),
             "boxes_xyxy": [p["boxes"] for p in predictions],

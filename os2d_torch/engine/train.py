@@ -16,9 +16,11 @@ every leaf (they count in the clipping norm); the optimizer holds only the
 trainable ones (`trainable_parameters`). The loop mines hard patches at
 cfg.train.mining's boundaries (engine/mining.py) and serves class images
 from a device class cache as cfg.tpu.device_class_cache asks
-(data/class_cache.py). The device mesh, the YUV upload wire and the
-training and mining visualisations are not ported and raise
-NotImplementedError.
+(data/class_cache.py). Over a mesh (parallel/mesh.py) the step is data
+parallel and equals the single-process step on the global batch; the loop
+evaluates with the mesh and writes its logs and checkpoints on rank 0 only.
+The YUV upload wire and the training and mining visualisations are not
+ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 
 from ..data.class_cache import DeviceClassCache
 from ..models.head import build_class_head
+from ..parallel.mesh import all_reduce_sum_, gather_rows, local_rows
 from .decode import default_boxes_for_image_size
 from .mining import mine_hard_patches
 from .objective import ObjectiveConfig, compute_objective
@@ -101,10 +104,25 @@ class TrainStep:
     runs at the model's compute dtype, as JAX's step runs at
     model_cfg.dtype (os2d_tpu/engine/train.py:149-166): parameters and the
     optimizer's state stay fp32, the bf16 casts sit inside the forward, and
-    autograd returns fp32 gradients to the fp32 leaves, as jax.grad does."""
+    autograd returns fp32 gradients to the fp32 leaves, as jax.grad does.
 
-    def __init__(self, model, objective_cfg: ObjectiveConfig, optimizer, train_cfg):
+    With a `mesh` the step is data parallel, and computes what the
+    single-process step computes on the global batch (as XLA's sharded step
+    does, os2d_tpu/engine/train.py:859-935). Every rank gets the whole batch
+    and runs the backbone, the label branch and the head on its own rows of
+    images. `loc`, `cls` and `cls_detached` of the whole batch are then
+    gathered (`gather_rows`, whose backward keeps the rank's own rows), and
+    targets, remapping and the objective are computed on the global batch,
+    identically on every rank: the objective couples the batch (one
+    hard-negative ranking over every image, class and anchor; num_pos and
+    RLL's negative weights summed over it), so a mean of per-rank losses
+    would not equal it. The gradients are summed over the ranks before the
+    clip, so every rank takes the same update and the ranks' weights stay
+    equal to the bit."""
+
+    def __init__(self, model, objective_cfg: ObjectiveConfig, optimizer, train_cfg, mesh=None):
         self.model = model.train_mode(True)
+        self.mesh = mesh
         self.objective_cfg = objective_cfg
         self.optimizer = optimizer
         self.train_cfg = train_cfg
@@ -120,16 +138,21 @@ class TrainStep:
         the loss terms and the gradient norm (before clipping) as floats:
         reading them, and deciding whether the update is finite, is the
         step's one wait for the device."""
-        model, tcfg = self.model, self.train_cfg
+        model, tcfg, mesh = self.model, self.train_cfg, self.mesh
         mean, std = self.mean, self.std
         for p in model.parameters():
             p.grad = None
 
-        fm = model.backbone(_normalize_u8(batch_arrays["images"], mean, std))
+        images = batch_arrays["images"]
+        if mesh is not None:
+            images = images[local_rows(mesh, images.shape[0])]
+        fm = model.backbone(_normalize_u8(images, mean, std))
         class_fm = model.label_branch(_normalize_u8(batch_arrays["class_images"], mean, std))
         if not tcfg.model.train_features:
             fm, class_fm = fm.detach(), class_fm.detach()
         out = model.apply_head(fm, build_class_head(class_fm))
+        if mesh is not None:
+            out = {k: gather_rows(mesh, out[k]) for k in ("loc", "cls", "cls_detached")}
 
         obj = tcfg.objective
         gt = (batch_arrays["gt_boxes"], batch_arrays["gt_labels"], batch_arrays["gt_difficult"],
@@ -153,6 +176,8 @@ class TrainStep:
         losses["loss"].backward()
 
         grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if mesh is not None:
+            all_reduce_sum_(mesh, grads)
         grad_norm = torch.sqrt(torch.stack([g.square().sum() for g in grads]).sum())
         # torch-style clip_grad_norm_
         scale = torch.clamp(float(tcfg.optim.max_grad_norm) / (grad_norm + 1e-6), max=1.0)
@@ -225,16 +250,22 @@ def prepare_batch_arrays(batch, device, class_pad_multiple: int = 4, pixel_forma
     return arrays, c_pad
 
 
-def dump_nan_reproducer(dump_dir, batch_arrays, model, optimizer, num_classes, extra=None):
+def dump_nan_reproducer(dump_dir, batch_arrays, model, optimizer, num_classes, extra=None,
+                        mesh=None):
     """Everything needed to replay a step whose gradient was not finite, in
     error_nan_appeared-<timestamp>.pth (the reference's dump,
     os2d/engine/train.py:116-129): the batch, the weights and the optimizer
     state (both as they were before the step: its update was skipped).
-    Reload with `load_nan_reproducer`."""
+    Reload with `load_nan_reproducer`. Over a mesh every rank reaches the
+    dump (the gradient norm is summed over the ranks) and `batch_arrays` is
+    the global batch that every rank holds, so a replay needs no other
+    rank; each rank's file ends in -p<rank>, so that equal dumps on shared
+    storage do not overwrite each other (os2d_tpu/engine/train.py:451-464)."""
     import datetime
 
     ts = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
-    path = os.path.join(dump_dir or ".", f"error_nan_appeared-{ts}.pth")
+    proc = f"-p{mesh.rank}" if mesh is not None and mesh.size > 1 else ""
+    path = os.path.join(dump_dir or ".", f"error_nan_appeared-{ts}{proc}.pth")
     torch.save({
         "batch_arrays": {k: v.cpu() for k, v in batch_arrays.items()},
         "net": model.state_dict(),
@@ -337,13 +368,11 @@ class BatchPrefetcher:
             self._request.put(None)
 
 
-def train_one_batch(batch, train_step: TrainStep, logger, dump_dir=None, prepared=None,
-                    mesh=None):
+def train_one_batch(batch, train_step: TrainStep, logger, dump_dir=None, prepared=None):
     """One training iteration (os2d/engine/train.py:47-139). `prepared` takes
     (arrays, c_pad) from prepare_batch_arrays when a prefetcher already
-    uploaded the batch. Returns the meters (losses, grad_norm, batch_time)."""
-    if mesh is not None:
-        raise NotImplementedError("training over a device mesh is not ported to os2d_torch")
+    uploaded the batch; over the train step's mesh, `batch` is the global
+    batch on every rank. Returns the meters (losses, grad_norm, batch_time)."""
     t_start = time.time()
     model = train_step.model
     arrays, c_pad = prepared if prepared is not None else prepare_batch_arrays(
@@ -353,25 +382,25 @@ def train_one_batch(batch, train_step: TrainStep, logger, dump_dir=None, prepare
         # the step skipped the update; the weights and optimizer state are the
         # step's inputs
         dump_path = dump_nan_reproducer(dump_dir, arrays, model, train_step.optimizer, c_pad,
-                                        extra={"meters": meters})
+                                        extra={"meters": meters}, mesh=train_step.mesh)
         logger.error(f"gradient is not finite; the update was skipped. Saved reproducer to "
                      f"{dump_path}; reload with os2d_torch.engine.train.load_nan_reproducer")
     meters["batch_time"] = time.time() - t_start
     return meters
 
 
-def evaluate_model(dataloaders_eval, model, cfg, criterion=None, print_per_class_results=False):
+def evaluate_model(dataloaders_eval, model, cfg, criterion=None, print_per_class_results=False,
+                   mesh=None):
     from .evaluate import evaluate
 
     return {loader.get_name(): evaluate(loader, model, cfg, criterion=criterion,
-                                        print_per_class_results=print_per_class_results)
+                                        print_per_class_results=print_per_class_results,
+                                        mesh=mesh)
             for loader in dataloaders_eval if loader is not None}
 
 
-def _unported_train_options(cfg, mesh):
+def _unported_train_options(cfg):
     unported = []
-    if mesh is not None:
-        unported.append("a device mesh")
     for flag in ("show_gt_boxes_dataloader", "show_target_remapping", "show_detections"):
         if bool(cfg.visualization.train[flag]):
             unported.append(f"cfg.visualization.train.{flag}")
@@ -426,11 +455,28 @@ def trainval_loop(dataloader_train, model, cfg, objective_cfg, optimizer, datalo
     mine_hard_patches_iter-th iteration, iteration 0 included, and the
     batches after replay them. cfg.tpu.device_class_cache ("auto" by
     default) attaches a device class cache (`attach_device_class_cache`).
+
+    With a `mesh` (parallel/mesh.py; main.py builds it from
+    cfg.tpu.mesh_data_axis) every rank runs this loop on the same global
+    batches: the step is data parallel (`TrainStep`), evaluation shards
+    classes or images as cfg.tpu.eval_shard_axis says, mining runs whole on
+    every rank from its identically seeded loader, and only rank 0 writes
+    logs and checkpoints (os2d_tpu/engine/train.py:986-1078). A one-rank
+    mesh is dropped; train.batch_size must divide over the ranks.
     Returns (full_log, meters_eval of the final evaluation)."""
-    unported = _unported_train_options(cfg, mesh)
+    unported = _unported_train_options(cfg)
     if unported:
         raise NotImplementedError("not ported to os2d_torch: " + "; ".join(unported))
     logger = logging.getLogger("OS2D.train")
+    if mesh is not None:
+        if mesh.size <= 1:
+            mesh = None
+        elif cfg.train.do_training and cfg.train.batch_size % mesh.size:
+            raise ValueError(f"train.batch_size={cfg.train.batch_size} must be divisible by "
+                             f"the mesh size {mesh.size} for data-parallel training")
+        else:
+            logger.info(f"Data-parallel training over {mesh.size} ranks "
+                        f"({cfg.train.batch_size // mesh.size} images/rank)")
     t_start = time.time()
     do_mining = bool(cfg.train.mining.do_mining)
     mine_iter = int(cfg.train.mining.mine_hard_patches_iter)
@@ -439,7 +485,7 @@ def trainval_loop(dataloader_train, model, cfg, objective_cfg, optimizer, datalo
                    pixel_format=str(cfg.tpu.upload_pixel_format))
     full_log = full_log if full_log is not None else init_log()
     num_steps_for_logging, meters_running = 0, {}
-    train_step = TrainStep(model, objective_cfg, optimizer, cfg.train)
+    train_step = TrainStep(model, objective_cfg, optimizer, cfg.train, mesh=mesh)
     best_model_metric = best_model_dataset_name = None
     checkpoint_best_model_name = checkpoint_best_model_path = None
     max_iter = int(cfg.train.optim.max_iter)
@@ -448,7 +494,8 @@ def trainval_loop(dataloader_train, model, cfg, objective_cfg, optimizer, datalo
         logger.info("Start training")
         anneal_lr_func = setup_lr(full_log, cfg.train.optim.anneal_lr, cfg.eval.iter,
                                   initial_steps=start_iter // max(cfg.eval.iter, 1))
-        meters_eval = evaluate_model(dataloaders_eval, model, cfg, criterion=objective_cfg)
+        meters_eval = evaluate_model(dataloaders_eval, model, cfg, criterion=objective_cfg,
+                                     mesh=mesh)
         best = cfg.output.best_model
         if best.do_get_best_model:
             if not cfg.output.path:
@@ -511,7 +558,7 @@ def trainval_loop(dataloader_train, model, cfg, objective_cfg, optimizer, datalo
 
             if (i_iter + 1) % cfg.eval.iter == 0:
                 meters_eval = evaluate_model(dataloaders_eval, model, cfg,
-                                             criterion=objective_cfg)
+                                             criterion=objective_cfg, mesh=mesh)
                 if best.do_get_best_model:
                     cur = meters_eval[best_model_dataset_name][best.metric]
                     if (cur > best_model_metric if best.mode == "max"
@@ -535,6 +582,8 @@ def trainval_loop(dataloader_train, model, cfg, objective_cfg, optimizer, datalo
                 if new_lr != old_lr:
                     if (cfg.train.optim.anneal_lr.reload_best_model_after_anneal_lr
                             and checkpoint_best_model_path):
+                        if mesh is not None:
+                            mesh.barrier()  # rank 0 has written the best model
                         ckpt = load_checkpoint(checkpoint_best_model_path)
                         model.load_state_dict(ckpt["net"])
                         if ckpt.get("optimizer") is not None:
@@ -553,7 +602,8 @@ def trainval_loop(dataloader_train, model, cfg, objective_cfg, optimizer, datalo
         prefetcher.close()
 
     logger.info("Final evaluation")
-    meters_eval = evaluate_model(dataloaders_eval, model, cfg, print_per_class_results=True)
+    meters_eval = evaluate_model(dataloaders_eval, model, cfg, print_per_class_results=True,
+                                 mesh=mesh)
     if max_iter > 0 and cfg.train.do_training:
         log_meters(full_log, t_start, max_iter, cfg.output.path, meters_eval=meters_eval)
         if cfg.output.path:

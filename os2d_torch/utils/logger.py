@@ -5,6 +5,8 @@ os2d/utils/logger.py:12-160): hierarchical loggers, in-memory metric series
 NaN-padded to equal length and pickled to train_log.pkl, and model
 checkpoints written with torch.save in the reference's {"net", "optimizer",
 ...} layout (the JAX package's orbax backend has no counterpart here).
+In a run of several processes only rank 0 writes files (the log file,
+train_log.pkl, checkpoints), as only the JAX package's primary host does.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.mesh import primary_host
+
 
 def setup_logger(name="OS2D", log_path=None):
     logger = logging.getLogger(name)
@@ -31,7 +35,7 @@ def setup_logger(name="OS2D", log_path=None):
     sh = logging.StreamHandler(stream=sys.stdout)
     sh.setFormatter(fmt)
     logger.addHandler(sh)
-    if log_path:
+    if log_path and primary_host():
         os.makedirs(log_path, exist_ok=True)
         fh = logging.FileHandler(os.path.join(log_path, "log.txt"))
         fh.setFormatter(fmt)
@@ -89,7 +93,7 @@ def log_meters(full_log, t_start, i_iter, output_path, meters_running=None,
         while len(series) < max_len:
             series.append(float("nan"))
 
-    if output_path:
+    if output_path and primary_host():  # one writer in a multi-process run
         os.makedirs(output_path, exist_ok=True)
         try:
             with open(os.path.join(output_path, "train_log.pkl"), "wb") as f:
@@ -105,9 +109,13 @@ def checkpoint_model(model, optimizer, output_path, i_iter=None, model_name=None
     "i_iter", "full_log", **extra} with torch.save (logger.py:137-160) to
     checkpoint_<model_name>.pth or checkpoint_iter_<i_iter>.pth; returns the
     path. The payload carries the iteration and the metric log, so training
-    resumes exactly."""
+    resumes exactly. In a multi-process run only rank 0 writes (every rank
+    holds the same weights); the others return the path unwritten, so a
+    reload needs storage that every rank sees."""
     name = f"checkpoint_{model_name}" if model_name is not None else f"checkpoint_iter_{i_iter}"
     path = os.path.join(output_path, name + ".pth")
+    if not primary_host():
+        return path
     os.makedirs(output_path, exist_ok=True)
     payload = {
         "i_iter": i_iter,

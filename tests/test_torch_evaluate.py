@@ -176,5 +176,10 @@ def test_evaluate_rejects_unported_options(loaders):
         cfg.merge_from_list([key, str(value)])
         with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
             teval.evaluate(loader, model, cfg)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        teval.evaluate(loader, model, get_default_cfg(), mesh=object())
+    # a mesh runs now; its size rules raise before any collective
+    from os2d_torch.parallel import Mesh
+
+    cfg = get_default_cfg()
+    cfg.tpu.eval_shard_axis = "images"
+    with pytest.raises(ValueError, match="multiple of the mesh size"):
+        teval.evaluate(loader, model, cfg, mesh=Mesh(None, 0, 2, torch.device("cpu")))

@@ -448,3 +448,73 @@ def test_service_on_the_card_matches_the_cpu(cuda_gen):
     ws, wb = np.array(want["scores"]), np.array(want["bboxes"]) * scale
     for score, box in zip(got["scores"], np.array(got["bboxes"]) * scale):
         assert ((np.abs(ws - score) <= 1e-4) & (np.abs(wb - box).max(-1) <= 1e-2)).any()
+
+
+def _train_arrays(gen, b=2, side=320, classes=4):
+    """A synthetic train batch as prepare_batch_arrays gives it, on the card:
+    uint8 images and class images, and two GT boxes per image near the
+    anchors' 240 px, so that some anchors are positives."""
+    from os2d_torch.engine.decode import default_boxes_for_image_size
+    from os2d_torch.structures.feature_map import FeatureMapSize
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+
+    gt_boxes = torch.zeros((b, 8, 4), device="cuda")
+    gt_boxes[:, 0] = torch.tensor([40.0, 40.0, 280.0, 280.0])
+    gt_boxes[:, 1] = torch.tensor([64.0, 48.0, 304.0, 288.0])
+    gt_valid = torch.zeros((b, 8), dtype=torch.bool, device="cuda")
+    gt_valid[:, :2] = True
+    return {"images": u8(b, side, side, 3), "class_images": u8(classes, 128, 128, 3),
+            "class_valid": torch.ones(classes, dtype=torch.bool, device="cuda"),
+            "gt_boxes": gt_boxes,
+            "gt_labels": torch.tensor([[0, 1] + [-1] * 6] * b, device="cuda"),
+            "gt_difficult": torch.zeros((b, 8), dtype=torch.bool, device="cuda"),
+            "gt_valid": gt_valid,
+            "default_boxes": default_boxes_for_image_size(FeatureMapSize(w=side, h=side),
+                                                          device="cuda")}
+
+
+def test_one_rank_nccl_step_matches_the_plain_step(cuda_gen, monkeypatch):
+    """The data-parallel TrainStep over a one-rank nccl group (the gather
+    and the gradient all_reduce through NCCL) takes the plain step's steps:
+    losses within rtol 2e-5, weights within rtol 1e-4, atol 1e-6. The
+    gradient norm is not held here: the backward's fp32 atomic adds move it
+    between two runs of the plain step alone (chip_smoke.py's phase
+    distributed reports by how much)."""
+    import torch.distributed as dist
+
+    from os2d_torch.config import get_default_cfg
+    from os2d_torch.engine.objective import ObjectiveConfig
+    from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.engine.train import TrainStep, trainable_parameters
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.parallel import init_distributed, make_mesh
+    from os2d_torch.parallel.spawn import free_port
+
+    cfg = get_default_cfg()
+    arrays = [_train_arrays(cuda_gen) for _ in range(3)]
+    models = [Os2dModel(Os2dConfig(class_image_size=128), seed=3) for _ in range(2)]
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"),
+                 ("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(free_port()))):
+        monkeypatch.setenv(k, v)
+    init_distributed(backend="nccl", device="cuda:0", timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        metrics = {}
+        for name, model in zip(("dp", "plain"), models):
+            optimizer = create_optimizer(cfg.train.optim, trainable_parameters(model, cfg.train))
+            step = TrainStep(model, ObjectiveConfig(margin_pos=1.0), optimizer, cfg.train,
+                             mesh=mesh if name == "dp" else None)
+            metrics[name] = [step(a, 4) for a in arrays]
+    finally:
+        dist.destroy_process_group()
+    assert metrics["plain"][0]["cls_RLL_pos"] > 0  # positives have a loss
+    for got, want in zip(metrics["dp"], metrics["plain"]):
+        for k in want:
+            if k != "grad_norm":
+                assert got[k] == pytest.approx(want[k], rel=2e-5), k
+    plain = models[1].state_dict()
+    for k, v in models[0].state_dict().items():
+        torch.testing.assert_close(v, plain[k], rtol=1e-4, atol=1e-6)

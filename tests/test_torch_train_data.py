@@ -148,8 +148,13 @@ def test_trainval_loop_refuses_unported_options(key, value):
     cfg.merge_from_list([key, str(value)])
     with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
         trainval_loop(None, None, cfg, None, None)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        trainval_loop(None, None, get_default_cfg(), None, None, mesh=object())
+    # a mesh runs now; a batch that does not divide over it raises first
+    from os2d_torch.parallel import Mesh
+
+    cfg = get_default_cfg()
+    cfg.train.batch_size = 3
+    with pytest.raises(ValueError, match="divisible by the mesh size 2"):
+        trainval_loop(None, None, cfg, None, None, mesh=Mesh(None, 0, 2, torch.device("cpu")))
 
 
 @pytest.mark.parametrize("frozen_blocks,freeze_transform,train_features",
