@@ -11,7 +11,9 @@
 The model is `Os2dConfig()` at full width (ResNet50-C4, 1024 channels) with
 seeded random weights. Its resample runs at the "default" tier, the bf16 hat
 kernel (csrc/hat_resample.cu); the "highest" tier runs the fp32 gather kernel
-(csrc/resample.cu). Both share the tile skeleton csrc/resample_tile.cuh.
+(csrc/resample.cu) and the "int8" tier the int8 hat kernel
+(csrc/int8_hat_resample.cu). The three share the tile skeleton
+csrc/resample_tile.cuh.
 Training differentiates the resample with the CUDA kernel
 csrc/resample_backward.cu (the hat form's gradient under JAX's rules).
 Phases, each printing one JSON line:
@@ -28,7 +30,11 @@ Phases, each printing one JSON line:
               with uniform px/py (almost no corr sector read twice) and with
               near-identity px/py (a tile's rows share each sector, as on
               the main path); px/py up to 0.5 outside the map; H=300;
-              B*C = 65600.
+              B*C = 65600; half-way px/py.
+     int8_kernel  the int8 kernel against its plain version on the same
+              cases (and in phase 8 on the main path's inputs at every
+              level) at rtol 1e-5, atol 1e-6, and whether it agreed to the
+              bit.
   3. planted  the planted-patch scenes of tests/test_end_to_end_eval.py
               through Evaluator.detect_images at the default tier: each patch
               must be the top valid detection of its class (IoU > 0.5), and
@@ -59,7 +65,9 @@ Phases, each printing one JSON line:
               the largest level, beside their bounds, their
               plain versions and one PyTorch call each that computes the
               same function (F.grid_sample and a masked sum; the port calls
-              neither).
+              neither); the int8 kernel likewise, its yardstick
+              F.grid_sample over round(corr*127)/127 * mask, an
+              approximation (its row weights are not quantized).
   9. train_first_step  the training path's first TrainStep at the default
               recipe (below) but with RLL's margin_pos at 1.0, on the card and
               on the CPU from the same weights and batch: loss and gradient
@@ -183,6 +191,27 @@ Phases, each printing one JSON line:
               card: no measure of scaling). Each rank counts its launches
               and returns them: the hat kernel and the backward DIST_STEPS
               times in each rank's steps, the gather in each eval.
+Then the model options, each with the main path's weights (phases 23-26):
+ 23. int8_tier  planted patches with resample_precision "int8", card
+              against CPU (scores within INT8_SCORE_ATOL); the bench protocol
+              at "int8" and "default" in turns (OPTION_ROUNDS rounds), the
+              int8 kernel 7 times per int8 dispatch.
+ 24. int8_bank  evaluate() with cfg.tpu.quantize_class_feats over phase 4's
+              planted files (no TTA, threshold 0.5): mAP@0.50 1.0 on the
+              card and the CPU, the prescreen not applied; the bench bank's
+              MiB as int8 against fp32, from the tensors.
+ 25. grid_path  corr_interior_first=False: planted detections card against
+              CPU at "default" and "highest", the head's outputs at full
+              width card against CPU and against the interior-first head
+              (GRID_HEAD_ATOL); evaluate() as phase 4 (mAP 1.0); phase 9's
+              first step card against CPU; the bench dispatch in turns with
+              interior-first.
+ 26. group_norm  Os2dConfig(use_group_norm=True): planted detections card
+              against CPU; phase 9's first step card against CPU; the
+              ResNet101-C4 forward with BN and with GN on a GN_CROP crop,
+              card against CPU within R101_RTOL_TO_MAX of the largest
+              feature; the bench dispatch and the pyramid + backbone alone,
+              GN and BN in turns.
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
 entry point that enqueues a memset, a scatter kernel and a transpose
 kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
@@ -193,11 +222,12 @@ on one point) and the training shape (B=4, C=16, 38x38, T=121 of 225) on
 uniform, near-identity, exact-identity and collapsed inputs.
 Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-19
 (each dispatch of phase 14) and read just after it, around each step of
-phase 17, each call of phase 21 and, in each rank of phase 22, its steps
-and each eval; a phase whose kernel was not launched fails. The kernels
-line counts the launches of the timed dispatches of phases 6 (hat) and 7
-(gather) and of phase 10's loop (backward), with those of phase 21 added
-to the hat and the gather and those of phase 22's ranks to all three. Then one
+phase 17, each call of phase 21, in each rank of phase 22 its steps and
+each eval, and around each card run and each set of timed turns of phases
+23-26; a phase whose kernel was not launched fails. The kernels line counts
+the launches of the timed dispatches of phases 6 (hat), 7 (gather) and 23
+(int8) and of phase 10's loop (backward), with those of phase 21 added to
+the hat and the gather and those of phase 22's ranks to all three. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
 exits 1.
@@ -223,6 +253,12 @@ RESAMPLE_FLOPS_PER_SAMPLE = 20
 # column products and their sum, the accumulate
 HAT_FLOPS_PER_SAMPLE = 28
 RTOL, ATOL = 1e-5, 1e-6
+# and in the int8 hat form: floor x2, four hat weights (two subtracts, an
+# abs and a max each), two row weights (a multiply and a round each), four
+# corner quantizations (a multiply, a round, a min and a max each), four
+# integer products and two sums, two conversions and scalings, two column
+# products and their sum, the mask product and the accumulate
+INT8_OPS_PER_SAMPLE = 49
 # the hat kernel rounds at its plain version's points and so agrees with it
 # to the bit; this is the gate it has had since it ran on the tensor cores
 HAT_RTOL, HAT_ATOL = 1e-5, 1e-5
@@ -324,6 +360,21 @@ DIST_STEPS, DIST_SEED, DIST_EVAL_BATCH, DIST_TIMED_ROUNDS = 3, 2, 2, 2
 DIST_LOSS_RTOL, DIST_PARAM_RTOL, DIST_PARAM_ATOL = 2e-5, 1e-4, 1e-6
 DIST_SCORE_ATOL, DIST_BOX_ATOL = 1e-5, 1e-2
 DIST_TIMEOUT_S = 300
+# phases 23-26, the model options: OPTION_ROUNDS rounds of (a, b, b, a) at
+# the bench protocol for each comparison; the int8 tier's planted scores
+# card against CPU within INT8_SCORE_ATOL (corr on the two devices differs in
+# its last bits, which moves a value across a 1/127 rounding point now and
+# then: one corner's step moves a score by at most 1/127 * 1/121 ~ 6.5e-5);
+# the grid path's head outputs card against CPU and against the
+# interior-first head within GRID_HEAD_ATOL; ResNet101-C4 card against CPU
+# on a GN_CROP crop within R101_RTOL_TO_MAX of the features' largest
+# magnitude (random He weights under identity normalizations grow the
+# residual stream of 23 blocks to ~1e4)
+OPTION_ROUNDS = 2
+INT8_SCORE_ATOL = 4e-4
+GRID_HEAD_ATOL = 1e-4
+GN_CROP = (320, 240)
+R101_RTOL_TO_MAX = 1e-4
 # what prepare_batch_arrays reads of a train batch, sent to the ranks
 DIST_BATCH_KEYS = ("images", "class_images", "class_ids", "gt_boxes", "gt_labels",
                    "gt_difficult", "gt_valid", "img_size")
@@ -379,6 +430,12 @@ def hat_bound(b, c, a, t):
     return bound(resample_bytes(b, c, a, t), HAT_FLOPS_PER_SAMPLE * b * c * t * a, FP32_FLOPS)
 
 
+def int8_bound(b, c, a, t):
+    """The int8 kernel: the gather's bytes (it reads fp32 corr), its
+    operations against the fp32 rate of the CUDA cores."""
+    return bound(resample_bytes(b, c, a, t), INT8_OPS_PER_SAMPLE * b * c * t * a, FP32_FLOPS)
+
+
 def backward_bytes(b, c, a, t, t_full):
     """dcorr (all t_full channels) written once, the corr prefix, px and py
     read once, dpx and dpy written once, the two cotangents and the mask
@@ -417,14 +474,15 @@ def random_resample_inputs(b, c, h, w, gen, kind, t_side=11):
     identity transform (15-px anchor boxes, t = tx*11 + ty), jittered by up
     to 0.25 px; "identity": the same without jitter, as the main path with
     random weights gives them; "collapsed": every sample of a (b, c) plane
-    on one point."""
+    on one point; "half": "uniform" moved to half-way points (hat weights
+    of 0.5, which the int8 tier's x127 rounds half to even)."""
     import torch
 
     dev = "cuda"
     corr = torch.tanh(torch.randn(b, c, h, w, 225, generator=gen, device=dev))
     t = t_side * t_side
     shape = (b, c, t, h * w)
-    if kind in ("uniform", "outside"):
+    if kind in ("uniform", "outside", "half"):
         pad = 0.5 if kind == "outside" else 0.0
         px = torch.rand(shape, generator=gen, device=dev) * (w - 1 + 2 * pad) - pad
         py = torch.rand(shape, generator=gen, device=dev) * (h - 1 + 2 * pad) - pad
@@ -432,6 +490,9 @@ def random_resample_inputs(b, c, h, w, gen, kind, t_side=11):
         px[:, :, 7:14] = w - 1
         py[:, :, 3:10] = 0.0
         py[:, :, 10:17] = h - 1
+        if kind == "half":
+            px = (px.floor() + 0.5).clamp(max=w - 1)
+            py = (py.floor() + 0.5).clamp(max=h - 1)
     elif kind == "collapsed":
         px = (torch.rand(b, c, 1, 1, generator=gen, device=dev) * (w - 1)).expand(shape)
         py = (torch.rand(b, c, 1, 1, generator=gen, device=dev) * (h - 1)).expand(shape)
@@ -532,10 +593,10 @@ def write_train_dataset(root):
     return pd.DataFrame(rows)
 
 
-def detections_agree(got, want, box_atol=1e-2):
+def detections_agree(got, want, box_atol=1e-2, score_atol=1e-4):
     """Every valid detection of `got` has one in `want` of the same image and
-    class with score within 1e-4 and box within box_atol px, and the counts
-    match (robust to the order of near-tied scores)."""
+    class with score within score_atol and box within box_atol px, and the
+    counts match (robust to the order of near-tied scores)."""
     import numpy as np
 
     for b in range(got["valid"].shape[0]):
@@ -545,7 +606,7 @@ def detections_agree(got, want, box_atol=1e-2):
                 return False
             ws, wb = want["scores"][b, g][wv], want["boxes"][b, g][wv]
             for s, box in zip(got["scores"][b, g][gv], got["boxes"][b, g][gv]):
-                hit = (np.abs(ws - s) <= 1e-4) & (np.abs(wb - box).max(-1) <= box_atol)
+                hit = (np.abs(ws - s) <= score_atol) & (np.abs(wb - box).max(-1) <= box_atol)
                 if not hit.any():
                     return False
     return True
@@ -1331,6 +1392,306 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
     return totals
 
 
+def planted_found(det):
+    """For each planted patch, its class's top valid detection of its scene:
+    IoU with the patch's box, score, and ok (valid and IoU > 0.5)."""
+    import numpy as np
+    import torch
+
+    from os2d_torch.structures.boxes import box_iou
+
+    found = []
+    for image_id, plants in PLANTED.items():
+        for x0, y0, cid in plants:
+            valid = det["valid"][image_id, cid]
+            top = int(np.argmax(np.where(valid, det["scores"][image_id, cid], -np.inf)))
+            iou = float(box_iou(torch.tensor(det["boxes"][image_id, cid, top][None]),
+                                torch.tensor([[x0, y0, x0 + PATCH, y0 + PATCH]],
+                                             dtype=torch.float32)))
+            found.append({"image": image_id, "class": cid, "iou": iou,
+                          "score": float(det["scores"][image_id, cid, top]),
+                          "ok": bool(valid.any()) and iou > 0.5})
+    return found
+
+
+def planted_eval_loader(root):
+    """The planted dataset written under `root` as files, read through the
+    port's data layer at EVAL_PYRAMID (phase 4's loader)."""
+    from os2d_torch.data.dataloader import DataloaderOneShotDetection
+    from os2d_torch.data.dataset import DatasetOneShotDetection
+
+    dataset = DatasetOneShotDetection(
+        write_planted_dataset(root), gt_path=os.path.join(root, "classes", "images"),
+        image_path=os.path.join(root, "src"), name="planted", image_size=640,
+        eval_scale=640, cache_images=True)
+    return DataloaderOneShotDetection(dataset, batch_size=1, pyramid_scales_eval=EVAL_PYRAMID)
+
+
+def max_abs_diff(got, want):
+    return float((got.cpu().float() - want.cpu().float()).abs().max())
+
+
+def model_options(counts, ctx):
+    """Phases 23 (int8_tier), 24 (int8_bank), 25 (grid_path) and 26
+    (group_norm): the model options of Os2dConfig and cfg.tpu beside the
+    default, each on the card against the CPU. `counts` holds reset(),
+    read() and require(phase, counts, kernel, expected); `ctx` the main
+    path's objects (the model and its weights, the planted scenes, the bench
+    batches and evaluator, the train batch and recipe). Returns the int8
+    kernel's launches in the timed int8 dispatches."""
+    import numpy as np
+    import torch
+
+    from os2d_torch.engine.evaluate import Evaluator, evaluate, unpack_detections
+    from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.engine.train import TrainStep, prepare_batch_arrays, trainable_parameters
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.models.head import quantize_class_head
+    from os2d_torch.ops.cuda import BUILD_DIR
+
+    def option_model(device="cuda", state=ctx.base_state, **options):
+        m = Os2dModel(Os2dConfig(**options), device=device)
+        m.load_state_dict({k: v.to(device) for k, v in state.items()})
+        return m
+
+    def planted_card_cpu(phase, kernel, score_atol=1e-4, **options):
+        """Planted detections of a card model and its CPU twin with
+        `options`: (card detections, CPU detections, agree, card launches)."""
+        counts.reset()
+        card = ctx.planted_detections(option_model("cuda", **options))
+        torch.cuda.synchronize()
+        launches = counts.read()
+        cpu = ctx.planted_detections(option_model("cpu", **options))
+        counts.require(phase, launches, kernel)
+        return card, cpu, detections_agree(card, cpu, score_atol=score_atol), launches
+
+    def in_turns(runs, rounds):
+        """Each named (evaluator, class head) timed at the bench protocol in
+        turns (a, b, b, a, ...) after one warmup each: ({name: [s]}, the
+        launches of the timed dispatches)."""
+        names = list(runs)
+        for ev_r, head_r in runs.values():
+            ev_r.detect_images(ctx.batches[-1], head_r, ctx.sizes, ctx.inv, ctx.norm)
+        torch.cuda.synchronize()
+        counts.reset()
+        times = {n: [] for n in names}
+        for i, name in enumerate((names + names[::-1]) * rounds):
+            ev_r, head_r = runs[name]
+            t0 = time.perf_counter()
+            out = ev_r.detect_images(ctx.batches[i % TIMED_DISPATCHES], head_r, ctx.sizes,
+                                     ctx.inv, ctx.norm)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            d = unpack_detections(out)
+            if not (np.isfinite(d["scores"][d["valid"]]).all() and d["valid"].any()):
+                raise SystemExit(f"{name}: non-finite or no detections at the bench protocol")
+        return times, counts.read()
+
+    def turns_summary(times):
+        return {"dispatch_s": times,
+                "median_dispatch_ms": {n: float(np.median(v)) * 1e3 for n, v in times.items()},
+                "spread_ms": {n: [min(v) * 1e3, max(v) * 1e3] for n, v in times.items()}}
+
+    def first_step_card_cpu(phase, **options):
+        """Phase 9's first step (seed-1 weights, margin_pos 1.0, the train
+        recipe's first batch) of a model with `options`, card against CPU."""
+        card = Os2dModel(Os2dConfig(**options), seed=1)
+        cpu = Os2dModel(Os2dConfig(**options), device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        out = {}
+        for dev, m in (("cuda", card), ("cpu", cpu)):
+            opt = create_optimizer(ctx.train_cfg.train.optim,
+                                   trainable_parameters(m, ctx.train_cfg.train))
+            step = TrainStep(m, ctx.first_objective, opt, ctx.train_cfg.train)
+            arrays, c_pad = prepare_batch_arrays(ctx.train_batch, m.device)
+            if dev == "cuda":
+                counts.reset()
+            out[dev] = step(arrays, c_pad)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = counts.read()
+        err = {k: abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
+               for k in out["cpu"]}
+        if not all(np.isfinite(v) for v in out["cuda"].values()):
+            raise SystemExit(f"{phase}: non-finite metrics {out['cuda']}")
+        if not out["cuda"]["cls_RLL_pos"] > 0:
+            raise SystemExit(f"{phase}: no positive below margin_pos, the cls gradient is zero")
+        for k in ("loss", "grad_norm"):
+            if not err[k] <= TRAIN_CPU_RTOL:
+                raise SystemExit(f"{phase}: first step {k} {out['cuda'][k]} on the card, "
+                                 f"{out['cpu'][k]} on the CPU")
+        counts.require(phase, launches, "hat_resample_correlation", 1)
+        counts.require(phase, launches, "resample_correlation_backward", 1)
+        return {"cuda": out["cuda"], "cpu": out["cpu"], "relative_err": err,
+                "rtol": TRAIN_CPU_RTOL, "launches": launches}
+
+    # ---- 23. the int8 tier ----
+    t_phase = time.perf_counter()
+    card, cpu, agree, planted_launches = planted_card_cpu(
+        "int8_tier", "int8_hat_resample_correlation", INT8_SCORE_ATOL,
+        resample_precision="int8")
+    found = planted_found(card)
+    int8_model = option_model(resample_precision="int8")
+    ev_int8 = Evaluator(int8_model, ctx.cfg)
+    head_int8, _ = ev_int8.build_class_heads(ctx.class_images)
+    times, int8_counts = in_turns(
+        {"default": (ctx.ev, ctx.class_head), "int8": (ev_int8, head_int8)}, OPTION_ROUNDS)
+    n_timed = 2 * OPTION_ROUNDS  # dispatches of each in the turns
+    emit({"phase": "int8_tier", "found": found, "cuda_matches_cpu": agree,
+          "score_atol": INT8_SCORE_ATOL, "planted_launches": planted_launches,
+          "images": f"{BATCH}x{IMG_W}x{IMG_H} uint8", "levels": len(PYRAMID),
+          "classes": NUM_CLASSES, "order": "default, int8, int8, default, ...",
+          **turns_summary(times), "launches": int8_counts,
+          "seconds": time.perf_counter() - t_phase})
+    if not (agree and all(f["ok"] for f in found)):
+        raise SystemExit(f"int8_tier: planted detections found {found}, card = CPU {agree}")
+    counts.require("int8_tier", int8_counts, "int8_hat_resample_correlation",
+                   len(PYRAMID) * n_timed)
+    counts.require("int8_tier", int8_counts, "hat_resample_correlation",
+                   len(PYRAMID) * n_timed)
+    del ev_int8, head_int8, int8_model
+
+    # ---- 24. the int8 class bank ----
+    t_phase = time.perf_counter()
+    bank_cfg = ctx.eval_cfg.clone()
+    bank_cfg.tpu.quantize_class_feats = True
+    bank_cfg.eval.class_image_augmentation = ""
+    cpu_model = option_model("cpu")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        loader = planted_eval_loader(root)
+        counts.reset()
+        bank_results = evaluate(loader, ctx.model, bank_cfg)
+        torch.cuda.synchronize()
+        bank_counts = counts.read()
+        bank_cpu_results = evaluate(loader, cpu_model, bank_cfg)
+    del cpu_model
+    qhead = quantize_class_head(ctx.class_head)
+    fp32_mb = ctx.class_head.class_feats.element_size() * ctx.class_head.class_feats.numel() / 2**20
+    int8_mb = (qhead.class_feats_q.element_size() * qhead.class_feats_q.numel()
+               + qhead.scales.element_size() * qhead.scales.numel()) / 2**20
+    emit({"phase": "int8_bank", "levels": EVAL_PYRAMID,
+          "nms_score_threshold": float(bank_cfg.eval.nms_score_threshold),
+          "mAP@0.50": bank_results["mAP@0.50"], "cpu_mAP@0.50": bank_cpu_results["mAP@0.50"],
+          "prescreen_applied": "prescreen_pruned" in bank_results,
+          "bench_bank": {"classes": NUM_CLASSES, "fp32_mb": fp32_mb, "int8_mb": int8_mb,
+                         "dtype": str(qhead.class_feats_q.dtype)},
+          "launches": bank_counts, "seconds": time.perf_counter() - t_phase})
+    if not bank_results["mAP@0.50"] == 1.0 == bank_cpu_results["mAP@0.50"]:
+        raise SystemExit(f"int8_bank: mAP@0.50 {bank_results['mAP@0.50']} on the card, "
+                         f"{bank_cpu_results['mAP@0.50']} on the CPU")
+    if "prescreen_pruned" in bank_results or qhead.class_feats_q.dtype != torch.int8:
+        raise SystemExit("int8_bank: the prescreen ran on an int8 bank, or the bank is not int8")
+    counts.require("int8_bank", bank_counts, "hat_resample_correlation")
+
+    # ---- 25. the grid path (corr_interior_first=False) ----
+    t_phase = time.perf_counter()
+    grid = {}
+    scene = torch.as_tensor(ctx.scenes[:1]).float() / 255.0
+    scene = (scene - torch.tensor(ctx.norm["mean"])) / torch.tensor(ctx.norm["std"])
+    for tier, kernel in (("default", "hat_resample_correlation"),
+                         ("highest", "resample_correlation")):
+        card, cpu, agree, launches = planted_card_cpu(
+            f"grid_path {tier}", kernel, corr_interior_first=False, resample_precision=tier)
+        # the head's outputs at full width on the card and the CPU, and the
+        # interior-first head on the card: the same function
+        heads = {}
+        for name, dev, first in (("cuda", "cuda", False), ("cpu", "cpu", False),
+                                 ("cuda_interior_first", "cuda", True)):
+            m = option_model(dev, corr_interior_first=first, resample_precision=tier)
+            with torch.no_grad():
+                fm = m.extract_features(scene.to(dev))
+                bank, _ = Evaluator(m, ctx.cfg).build_class_heads(ctx.planted_class_images)
+                heads[name] = m.apply_head(fm, bank)
+        head_err = {key: {"card_vs_cpu": max_abs_diff(heads["cuda"][key], heads["cpu"][key]),
+                          "vs_interior_first": max_abs_diff(heads["cuda"][key],
+                                                            heads["cuda_interior_first"][key])}
+                    for key in ("cls", "loc", "corners")}
+        grid[tier] = {"found": planted_found(card), "cuda_matches_cpu": agree,
+                      "head_max_abs_err": head_err, "launches": launches}
+        if not (agree and all(f["ok"] for f in grid[tier]["found"])):
+            raise SystemExit(f"grid_path {tier}: planted {grid[tier]['found']}, card = CPU {agree}")
+        for key in ("cls", "loc"):
+            if not max(head_err[key].values()) <= GRID_HEAD_ATOL:
+                raise SystemExit(f"grid_path {tier}: {key} {head_err[key]}")
+    grid_model = option_model(corr_interior_first=False)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        loader = planted_eval_loader(root)
+        counts.reset()
+        grid_results = evaluate(loader, grid_model, ctx.eval_cfg)
+        grid_eval_counts = counts.read()
+    grid_step = first_step_card_cpu("grid_path", corr_interior_first=False)
+    ev_grid = Evaluator(grid_model, ctx.cfg)
+    head_grid, _ = ev_grid.build_class_heads(ctx.class_images)
+    times, turn_counts = in_turns(
+        {"interior_first": (ctx.ev, ctx.class_head), "grid": (ev_grid, head_grid)},
+        OPTION_ROUNDS)
+    counts.require("grid_path turns", turn_counts, "hat_resample_correlation",
+                   len(PYRAMID) * 2 * n_timed)
+    emit({"phase": "grid_path", "tiers": grid, "head_atol": GRID_HEAD_ATOL,
+          "evaluate": {"mAP@0.50": grid_results["mAP@0.50"],
+                       "interior_first_mAP@0.50": ctx.eval_map,
+                       "prescreen_pruned": grid_results.get("prescreen_pruned"),
+                       "launches": grid_eval_counts},
+          "train_first_step": grid_step, "order": "interior_first, grid, grid, ...",
+          **turns_summary(times), "seconds": time.perf_counter() - t_phase})
+    if not grid_results["mAP@0.50"] == ctx.eval_map == 1.0:
+        raise SystemExit(f"grid_path: evaluate() mAP@0.50 {grid_results['mAP@0.50']}, "
+                         f"interior-first {ctx.eval_map}")
+    counts.require("grid_path evaluate", grid_eval_counts, "hat_resample_correlation")
+    del ev_grid, head_grid, grid_model
+
+    # ---- 26. GroupNorm backbones and ResNet101 ----
+    t_phase = time.perf_counter()
+    gn_state = Os2dModel(Os2dConfig(use_group_norm=True), seed=0).state_dict()
+    card, cpu, gn_agree, gn_launches = planted_card_cpu(
+        "group_norm", "hat_resample_correlation", state=gn_state, use_group_norm=True)
+    gn_step = first_step_card_cpu("group_norm", use_group_norm=True)
+    r101 = {}
+    crop = scene[:, :GN_CROP[1], :GN_CROP[0]]
+    for gn in (False, True):
+        m = Os2dModel(Os2dConfig(backbone_arch="resnet101", use_group_norm=gn), seed=3)
+        m_cpu = option_model("cpu", m.state_dict(), backbone_arch="resnet101", use_group_norm=gn)
+        with torch.no_grad():
+            got, want = m.extract_features(crop.cuda()), m_cpu.extract_features(crop)
+        scale = float(want.abs().max())
+        r101["gn" if gn else "bn"] = {
+            "shape": list(got.shape), "max_abs": scale, "max_abs_err": max_abs_diff(got, want),
+            "relative_to_max": max_abs_diff(got, want) / scale}
+        del m, m_cpu
+    gn_model = option_model(state=gn_state, use_group_norm=True)
+    ev_gn = Evaluator(gn_model, ctx.cfg)
+    head_gn, _ = ev_gn.build_class_heads(ctx.class_images)
+    times, turn_counts = in_turns(
+        {"batch_norm": (ctx.ev, ctx.class_head), "group_norm": (ev_gn, head_gn)},
+        OPTION_ROUNDS)
+    counts.require("group_norm turns", turn_counts, "hat_resample_correlation",
+                   len(PYRAMID) * 2 * n_timed)
+    # the backbone's share: the pyramid and backbone of a dispatch alone, in turns
+    backbone = {"batch_norm": [], "group_norm": []}
+    for i, (name, ev_b) in enumerate([("batch_norm", ctx.ev), ("group_norm", ev_gn),
+                                      ("group_norm", ev_gn), ("batch_norm", ctx.ev)]
+                                     * OPTION_ROUNDS):
+        t0 = time.perf_counter()
+        ev_b._pyramid_features(ctx.batches[i % TIMED_DISPATCHES], ctx.sizes, ctx.norm)
+        torch.cuda.synchronize()
+        backbone[name].append(time.perf_counter() - t0)
+    emit({"phase": "group_norm", "found": planted_found(card), "cuda_matches_cpu": gn_agree,
+          "launches": gn_launches, "train_first_step": gn_step,
+          "resnet101_c4": {"input": f"1x{GN_CROP[0]}x{GN_CROP[1]}", **r101,
+                           "rtol_to_max": R101_RTOL_TO_MAX},
+          "order": "batch_norm, group_norm, group_norm, batch_norm, ...",
+          **turns_summary(times),
+          "pyramid_and_backbone_ms": {n: float(np.median(v)) * 1e3 for n, v in backbone.items()},
+          "seconds": time.perf_counter() - t_phase})
+    if not gn_agree:
+        raise SystemExit("group_norm: planted detections differ between the card and the CPU")
+    for name, r in r101.items():
+        if not r["relative_to_max"] <= R101_RTOL_TO_MAX:
+            raise SystemExit(f"group_norm: ResNet101-C4 ({name}) card vs CPU {r}")
+    return int8_counts["int8_hat_resample_correlation"]
+
+
 def main(argv):
     import torch
 
@@ -1367,19 +1728,21 @@ def main(argv):
         trainable_parameters,
         trainval_loop,
     )
-    from os2d_torch.ops import hat_resample, nms, resample, resample_grad
+    from os2d_torch.ops import hat_resample, int8_resample, nms, resample, resample_grad
     from os2d_torch.ops.cuda import BUILD_DIR, build_all
     from os2d_torch.ops.sampling import (
         hat_resample_operand,
         hat_resample_reference,
+        int8_hat_resample_reference,
+        quantize_int8,
         resample_backward_reference,
         resample_correlation_from_pxpy_reference,
     )
-    from os2d_torch.structures.boxes import box_iou
     from os2d_torch.structures.feature_map import FeatureMapSize, feature_map_size_for_image
 
     kernels = {"resample_correlation": resample.KERNEL,
                "hat_resample_correlation": hat_resample.KERNEL,
+               "int8_hat_resample_correlation": int8_resample.KERNEL,
                "resample_correlation_backward": resample_grad.KERNEL}
 
     def reset_counts():
@@ -1423,8 +1786,10 @@ def main(argv):
     cases = [(shape, kind) for shape in shapes for kind in ("uniform", "near_identity")]
     cases += [(shape, "outside") for shape in ragged]
     cases += [((1, 2, 300, 7), "uniform"), ((2, 32800, 3, 2), "uniform")]
+    cases += [(shape, "half") for shape in ragged + [(BATCH, NUM_CLASSES, fms[-1].h, fms[-1].w)]]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"resample_correlation": {}, "hat_resample_correlation": {}}
+    errs = {"resample_correlation": {}, "hat_resample_correlation": {},
+            "int8_hat_resample_correlation": {}}
     hat_exact_errs = {}
     for (b, c, h, w), kind in cases:
         name = f"{kind}_{b}x{c}x{h}x{w}"
@@ -1440,6 +1805,11 @@ def main(argv):
         want = hat_resample_reference(corr, px, py, mask_t)
         errs["hat_resample_correlation"][name] = max_err_checked(
             got, want, f"hat kernel at {name}", HAT_RTOL, HAT_ATOL)
+        got8 = int8_resample.resample_correlation_int8(corr, px, py, mask_t)
+        torch.cuda.synchronize()
+        errs["int8_hat_resample_correlation"][name] = max_err_checked(
+            got8, int8_hat_resample_reference(corr, px, py, mask_t), f"int8 kernel at {name}")
+        del got8
         if kind != "outside":  # outside the map the hat form drops, the gather clamps
             hat_exact_errs[name] = float((got - exact).abs().max())
             if not hat_exact_errs[name] <= DEFAULT_TIER_MARGIN:
@@ -1471,6 +1841,10 @@ def main(argv):
         if got[0][..., px.shape[2]:].any():
             raise SystemExit(f"backward kernel wrote dcorr channels >= T at {name}")
         del corr, px, py, mask_t, g, g_sum, got, want
+    emit({"phase": "int8_kernel",
+          "int8_hat_resample_correlation": {
+              "rtol": RTOL, "atol": ATOL, "max_abs_err": errs["int8_hat_resample_correlation"],
+              "bit_equal": all(e == 0.0 for e in errs["int8_hat_resample_correlation"].values())}})
     bwd_errs = errs["resample_correlation_backward"]
     emit({"phase": "kernel",
           "resample_correlation_backward": {
@@ -1509,18 +1883,7 @@ def main(argv):
         head, _ = ev.build_class_heads(class_images)
         packed[dev] = unpack_detections(ev.detect_images(scenes, head, level, [(1.0, 1.0)], norm))
     planted_counts = read_counts()
-    det = packed["cuda"]
-    found = []
-    for image_id, plants in PLANTED.items():
-        for x0, y0, cid in plants:
-            valid = det["valid"][image_id, cid]
-            top = int(np.argmax(np.where(valid, det["scores"][image_id, cid], -np.inf)))
-            iou = float(box_iou(torch.tensor(det["boxes"][image_id, cid, top][None]),
-                                torch.tensor([[x0, y0, x0 + PATCH, y0 + PATCH]],
-                                             dtype=torch.float32)))
-            found.append({"image": image_id, "class": cid, "iou": iou,
-                          "score": float(det["scores"][image_id, cid, top]),
-                          "ok": bool(valid.any()) and iou > 0.5})
+    found = planted_found(packed["cuda"])
     agree = detections_agree(packed["cuda"], packed["cpu"])
     emit({"phase": "planted", "resample_precision": model.config.resample_precision,
           "found": found, "cuda_matches_cpu": agree, "launches": planted_counts})
@@ -1727,13 +2090,20 @@ def main(argv):
     if len(captured) != len(PYRAMID):
         raise SystemExit(f"captured {len(captured)} resample calls, expected {len(PYRAMID)}")
     main_exact_errs = {}
-    level_ms = {"resample_correlation": {}, "hat_resample_correlation": {}}
+    level_ms = {"resample_correlation": {}, "hat_resample_correlation": {},
+                "int8_hat_resample_correlation": {}}
     for corr, px, py, mask_t, hat_level in captured:
         name = f"main_path_{corr.shape[2]}x{corr.shape[3]}"
         level_ms["resample_correlation"][name] = cuda_ms(
             lambda: resample.resample_correlation(corr, px, py, mask_t), 10)
         level_ms["hat_resample_correlation"][name] = cuda_ms(
             lambda: hat_resample.resample_correlation_hat(corr, px, py, mask_t), 10)
+        level_ms["int8_hat_resample_correlation"][name] = cuda_ms(
+            lambda: int8_resample.resample_correlation_int8(corr, px, py, mask_t), 10)
+        errs["int8_hat_resample_correlation"][name] = max_err_checked(
+            int8_resample.resample_correlation_int8(corr, px, py, mask_t),
+            int8_hat_resample_reference(corr, px, py, mask_t),
+            f"int8 kernel on main-path inputs at {name}")
         exact = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
         errs["resample_correlation"][name] = max_err_checked(
             resample.resample_correlation(corr, px, py, mask_t), exact,
@@ -1810,7 +2180,37 @@ def main(argv):
           "bound_by": hat_bound_by,
           "max_abs_err": errs["hat_resample_correlation"][largest_name],
           "vs_exact_gather": main_exact_errs[largest_name]})
-    del corr, px, py, mask_t, exact, gather_out, hat_out
+
+    # the int8 kernel; yardstick, an approximation (PyTorch has no call for
+    # the int8 form; its row weights are not quantized here):
+    # grid_sample (border, align_corners) over the planes of
+    # round(corr*127)/127 * mask, then the sum over t; planes laid out
+    # outside the timing
+    int8_out = int8_resample.resample_correlation_int8(corr, px, py, mask_t)
+    int8_ms = cuda_ms(lambda: int8_resample.resample_correlation_int8(corr, px, py, mask_t), 20)
+    int8_plain_ms = cuda_ms(lambda: int8_hat_resample_reference(corr, px, py, mask_t), 3)
+    planes = (quantize_int8(corr) / 127.0 * mask_t[None, :, None, None, :]).permute(
+        0, 1, 4, 2, 3).reshape(b * c * t, 1, h, w).contiguous()
+    grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1], -1).reshape(b * c * t, 1, a, 2)
+
+    def int8_library():
+        s = F.grid_sample(planes, grid, mode="bilinear", padding_mode="border",
+                          align_corners=True)
+        return s.view(b, c, t, a).sum(2)
+
+    int8_library_err = float((int8_library().view(b, c, h, w) - int8_out).abs().max())
+    int8_library_ms = cuda_ms(int8_library, 5)
+    del planes, grid
+    int8_bound_ms, int8_bound_by = int8_bound(b, c, a, t)
+    emit({"phase": "resample_timing", "kernel": "int8_hat_resample_correlation", "shape": shape,
+          "ms": int8_ms, "plain_ms": int8_plain_ms, "library_ms": int8_library_ms,
+          "library": "F.grid_sample over round(corr*127)/127 * mask + sum over t "
+                     "(an approximation: the row weights are not quantized)",
+          "library_max_abs_err": int8_library_err, "bound_ms": int8_bound_ms,
+          "bound_by": int8_bound_by,
+          "max_abs_err": errs["int8_hat_resample_correlation"][largest_name],
+          "vs_exact_gather": float((int8_out - exact).abs().max())})
+    del corr, px, py, mask_t, exact, gather_out, hat_out, int8_out
 
     # ---- 9.-11. the training path at the default recipe ----
     train_cfg = get_default_cfg()
@@ -2482,6 +2882,17 @@ def main(argv):
     dist_counts = distributed_phase(
         train_cfg, [{k: b[k] for k in DIST_BATCH_KEYS} for b in dist_batches], require_launches)
 
+    # ---- 23.-26. the model options: int8 tier and bank, grid path, GroupNorm ----
+    int8_launches = model_options(
+        types.SimpleNamespace(reset=reset_counts, read=read_counts, require=require_launches),
+        types.SimpleNamespace(
+            model=model, base_state=base_state, scenes=scenes, norm=norm, cfg=cfg,
+            batches=batches, sizes=sizes, inv=inv, class_images=class_images, ev=ev,
+            class_head=class_head, eval_cfg=eval_cfg, eval_map=results["mAP@0.50"],
+            planted_detections=planted_detections,
+            planted_class_images=planted_class_images, train_batch=train_batch,
+            train_cfg=train_cfg, first_objective=first_objective))
+
     if "--profile" in argv:
         profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),
                     main_median)
@@ -2519,6 +2930,18 @@ def main(argv):
         "bound_ms": hat_bound_ms,
         "bound_by": hat_bound_by,
         "library_ms": hat_library_ms,
+    }, {
+        "name": "int8_hat_resample_correlation",
+        "route": "cuda",
+        "source": "os2d_torch/csrc/int8_hat_resample.cu",
+        "replaces": "os2d_tpu/ops/sampling.py:198",
+        "launches": int8_launches,
+        "max_abs_err": max(errs["int8_hat_resample_correlation"].values()),
+        "ms": int8_ms,
+        "plain_ms": int8_plain_ms,
+        "bound_ms": int8_bound_ms,
+        "bound_by": int8_bound_by,
+        "library_ms": int8_library_ms,
     }, {
         "name": "resample_correlation_backward",
         "route": "cuda",

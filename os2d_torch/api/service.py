@@ -120,7 +120,7 @@ class DetectionService:
         detections on the host."""
         ev = self.evaluator
         n_groups = class_head.class_feats.shape[0] // max(num_views, 1)
-        if n_groups >= self.prescreen_min_classes and ev.prescreen_applicable():
+        if n_groups >= self.prescreen_min_classes and ev.prescreen_applicable(class_head):
             self._count("prescreen_dispatches")
             packed = ev.detect_images_prescreened(
                 images_u8, class_head, level_sizes, inv_scales,

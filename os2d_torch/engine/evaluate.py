@@ -23,7 +23,12 @@
   cfg.tpu.eval_shard_axis says, classes (each rank scores its slice of every
   class chunk) or images (each rank detects its rows of the batch), and
   every rank ends with the unsharded run's detections and mAP.
-Not ported yet: the heatmaps, visualisation and int8 class banks.
+- With cfg.tpu.quantize_class_feats, `evaluate` quantizes the class bank to
+  int8 (`models.head.quantize_class_head`); it stays int8 on the device and
+  each class chunk is dequantized when the head runs. `detect_images` and
+  `score_pyramid` take a QuantizedClassHead (dequantized up front over a
+  mesh); the prescreen does not apply to it.
+Not ported yet: the heatmaps and visualisation.
 """
 
 from __future__ import annotations
@@ -38,7 +43,13 @@ import numpy as np
 import torch
 
 from ..data.voc_eval import do_voc_evaluation
-from ..models.head import ClassHead, correlation_gemm
+from ..models.head import (
+    ClassHead,
+    QuantizedClassHead,
+    correlation_gemm,
+    dequantize_class_head,
+    quantize_class_head,
+)
 from ..models.os2d import fold_inference_params
 from ..ops.geometry import l2_normalize_channels
 from ..ops.sampling import resize_bilinear_antialias
@@ -62,10 +73,12 @@ def prescreen_margin(resample_precision: str, compute_dtype: str = "float32") ->
     - "default": the hat kernel rounds corr*mask and the hat rows to bf16
       (2^-9 relative each); for cosine scores |corr| <= 1 the combined
       absolute error is <= ~2^-8 ~= 4e-3.
+    - "int8": corr is quantized to 1/127 steps (~4e-3 absolute) on top of
+      the fixed-point hat-weight rounding -> 1.5e-2.
     - compute_dtype "bfloat16" also rounds the phase-1 correlation's inputs
       (feature maps, class features): another 4e-3.
     A larger margin only admits extra classes (slower, never wrong)."""
-    margins = {"highest": 1e-4, "high": 1e-4, "default": 4e-3}
+    margins = {"highest": 1e-4, "high": 1e-4, "default": 4e-3, "int8": 1.5e-2}
     if resample_precision not in margins:
         raise ValueError(f"no prescreen margin for resample_precision {resample_precision!r}")
     return margins[resample_precision] + (4e-3 if compute_dtype == "bfloat16" else 0.0)
@@ -273,27 +286,35 @@ class Evaluator:
             fms.append(self.model.extract_features(level))
         return fms
 
-    def _score_levels(self, fms, feats, mask, keys=("loc", "cls"), shard_classes=False):
+    def _bank(self, class_head):
+        """The bank the head runs on: a QuantizedClassHead stays int8 on one
+        device; over a mesh it is dequantized up front, as JAX's
+        class-sharded chunks move fp32 (os2d_tpu/engine/evaluate.py:363-372)."""
+        if isinstance(class_head, QuantizedClassHead) and self.mesh is not None:
+            return dequantize_class_head(class_head)
+        return class_head
+
+    def _score_levels(self, fms, class_head, keys=("loc", "cls"), shard_classes=False):
         """Head over class chunks at every level -> {key: [per level]} for the
         head outputs in `keys`: loc [B, C, 4, A_l], cls [B, C, A_l], corners
         [B, C, 8, A_l]. Chunks of cfg.tpu.eval_class_chunk bound the [B,
         chunk, H, W, 225] correlation tensor; the last chunk is zero-padded to
-        the full size and the padding trimmed. With shard_classes each rank
-        of the mesh runs the head on its slice of every chunk, and each
-        output is gathered whole."""
+        the full size and the padding trimmed. A QuantizedClassHead's chunks
+        are dequantized as the head runs (zero rows pad to zero features).
+        With shard_classes each rank of the mesh runs the head on its slice
+        of every chunk, and each output is gathered whole."""
         mesh = self.mesh if shard_classes else None
         chunk = self._class_chunk(mesh is not None)
-        c_total = feats.shape[0]
+        c_total = class_head.pool_mask.shape[0]
         n_chunks = -(-c_total // chunk)
-        feats = _pad_classes(feats, n_chunks * chunk)
-        mask = _pad_classes(mask, n_chunks * chunk)
+        bank = [_pad_classes(x, n_chunks * chunk) for x in class_head]
         own = slice(0, chunk) if mesh is None else local_rows(mesh, chunk)
         scores = {k: [] for k in keys}
         for fm in fms:
             parts = {k: [] for k in keys}
             for start in range(0, n_chunks * chunk, chunk):
                 rows = slice(start + own.start, start + own.stop)
-                out = self.model.apply_head(fm, ClassHead(feats[rows], mask[rows]))
+                out = self.model.apply_head(fm, type(class_head)(*(x[rows] for x in bank)))
                 for k in keys:
                     parts[k].append(out[k])
             for k in keys:
@@ -316,7 +337,7 @@ class Evaluator:
         keys = ("loc", "cls", "corners") if want_corners else ("loc", "cls")
         fms = [self.model.extract_features(torch.as_tensor(level, device=self.model.device))
                for level in pyramid_images]
-        scores = self._score_levels(fms, class_head.class_feats, class_head.pool_mask, keys,
+        scores = self._score_levels(fms, self._bank(class_head), keys,
                                     shard_classes=self.mesh is not None)
         return [{k: scores[k][i] for k in keys} for i in range(len(fms))]
 
@@ -347,7 +368,7 @@ class Evaluator:
             if gt is not None:
                 gt = {k: v[rows] for k, v in gt.items()}
         fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
-        scores = self._score_levels(fms, class_head.class_feats, class_head.pool_mask,
+        scores = self._score_levels(fms, self._bank(class_head),
                                     shard_classes=self.mesh is not None and not by_images)
         loc_p, cls_p = scores["loc"], scores["cls"]
         scales = [tuple(s) for s in inverse_scales]
@@ -360,11 +381,12 @@ class Evaluator:
                 losses = {k: all_gather_cat(self.mesh, v) for k, v in losses.items()}
         return packed if losses is None else (packed, losses)
 
-    def prescreen_applicable(self) -> bool:
+    def prescreen_applicable(self, class_head=None) -> bool:
         """The no-miss class prescreen is available when the decode threshold is
         finite (scores are mask-weighted averages of correlations, so the
-        per-class correlation ceiling bounds every decodable score) and
-        cfg.tpu.eval_class_prescreen is on. Under nms_across_classes the
+        per-class correlation ceiling bounds every decodable score),
+        cfg.tpu.eval_class_prescreen is on and the bank is not an int8
+        QuantizedClassHead. Under nms_across_classes the
         padded duplicate rows are score-masked to -inf in phase 2 so they
         cannot suppress real detections; pruned classes cannot suppress
         anything either (they have no detections above the threshold).
@@ -372,6 +394,7 @@ class Evaluator:
         684-700)."""
         return (bool(self.cfg.tpu.eval_class_prescreen)
                 and bool(np.isfinite(float(self.cfg.eval.nms_score_threshold)))
+                and not isinstance(class_head, QuantizedClassHead)
                 and (self.mesh is None or self.shard_axis == "classes"))
 
     @torch.no_grad()
@@ -399,6 +422,9 @@ class Evaluator:
         and the ceilings are gathered, so every rank keeps the same classes.
         """
         cfg = self.cfg
+        if isinstance(class_head, QuantizedClassHead):
+            raise ValueError("the class prescreen takes an fp32 bank, not a QuantizedClassHead "
+                             "(see prescreen_applicable)")
         feats_bank, pool_mask = class_head.class_feats, class_head.pool_mask
         c_total, f = feats_bank.shape[0], feats_bank.shape[-1]
         n_groups = c_total // num_views
@@ -453,7 +479,7 @@ class Evaluator:
         row_idx = (sel[:, None] * num_views + np.arange(num_views)).reshape(-1)
         row_idx = np.concatenate([row_idx, np.zeros((c_sel_pad - n_sel_rows,), np.int64)])
         rows = torch.as_tensor(row_idx, device=device)
-        scores = self._score_levels(fms, feats_bank[rows], pool_mask[rows],
+        scores = self._score_levels(fms, ClassHead(feats_bank[rows], pool_mask[rows]),
                                     shard_classes=mesh is not None)
         loc_p, cls_p = scores["loc"], scores["cls"]
         # c_sel_pad need not divide into views: trim to the largest
@@ -477,8 +503,6 @@ def _unported_eval_options(cfg):
     for flag in ("show_class_heatmaps", "show_detections", "show_gt_boxes"):
         if bool(viz[flag]):
             unported.append(f"cfg.visualization.eval.{flag}")
-    if bool(cfg.tpu.quantize_class_feats):
-        unported.append("cfg.tpu.quantize_class_feats (int8 class banks)")
     pixel_format = str(cfg.tpu.upload_pixel_format)
     if pixel_format == "yuv420":
         unported.append("cfg.tpu.upload_pixel_format='yuv420'")
@@ -511,8 +535,10 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     with its own model (the same weights) and the same loader, the work
     shards as cfg.tpu.eval_shard_axis says (`Evaluator`), and every rank
     returns the same results (os2d_tpu/engine/evaluate.py:1003-1022); only
-    rank 0 writes the detections file. Options of the JAX package that
-    are not ported raise NotImplementedError.
+    rank 0 writes the detections file. With cfg.tpu.quantize_class_feats
+    the class bank is quantized to int8 (os2d_tpu/engine/evaluate.py:
+    1028-1032) and the prescreen does not run. Options of the JAX package
+    that are not ported raise NotImplementedError.
     """
     unported = _unported_eval_options(cfg)
     if unported:
@@ -530,9 +556,12 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     class_images, _, class_ids = dataloader.get_all_class_images()
     class_head, num_views = evaluator.build_class_heads(
         class_images, cfg.eval.class_image_augmentation)
+    if bool(cfg.tpu.quantize_class_feats):
+        class_head = quantize_class_head(class_head)
     img_norm = dataloader.img_normalization
     device_pyramid = bool(cfg.tpu.device_side_pyramid)
-    use_prescreen = device_pyramid and criterion is None and evaluator.prescreen_applicable()
+    use_prescreen = (device_pyramid and criterion is None
+                     and evaluator.prescreen_applicable(class_head))
     detect = evaluator.detect_images_prescreened if use_prescreen else evaluator.detect_images
     if not device_pyramid:
         logger.info("eval path: host pyramid, per-level dispatches "

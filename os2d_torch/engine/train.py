@@ -62,7 +62,8 @@ def build_trainable_mask(model, train_cfg) -> Dict[str, bool]:
     os2d/modeling/model.py:56-63): the TransformationNet with
     freeze_transform, the first num_frozen_extractor_blocks blocks of each
     backbone (conv1 + bn1 counts as the first), and both backbones without
-    train_features are frozen. BatchNorm's tensors train like the rest."""
+    train_features are frozen. BatchNorm's and GroupNorm's tensors train
+    like the rest."""
     mask = {name: True for name, _ in model.named_parameters()}
 
     def freeze(prefix):
@@ -105,6 +106,8 @@ class TrainStep:
     model_cfg.dtype (os2d_tpu/engine/train.py:149-166): parameters and the
     optimizer's state stay fp32, the bf16 casts sit inside the forward, and
     autograd returns fp32 gradients to the fp32 leaves, as jax.grad does.
+    At resample_precision "int8", which has no gradient, the step runs the
+    "default" tier, as JAX's train-mode head does (ops/resample_grad.py).
 
     With a `mesh` the step is data parallel, and computes what the
     single-process step computes on the global batch (as XLA's sharded step

@@ -16,7 +16,10 @@ only:
                                                       conv1 / bn1 / linear
 
 Keys the port has no place for (`num_batches_tracked`, layer4, fc) are
-dropped; a key the port needs and the file lacks raises KeyError.
+dropped; a key the port needs and the file lacks raises KeyError. With
+`config.use_group_norm` the backbones' normalizations are GroupNorm(32),
+whose keys are `<bn>.weight` and `<bn>.bias` only (the reference's GN
+backbones and the converted caffe2 GroupNorm dumps of `models/converters.py`).
 
 `load_checkpoint_file` reads a file through the reference's cascade and two
 formats of this repo: the port's own `.pth` (`utils.logger.checkpoint_model`,
@@ -49,8 +52,8 @@ PORT_PREFIXES = ("backbone.", "label_backbone.", "transform_net.")
 
 
 @functools.lru_cache(maxsize=None)
-def _resnet_keys(arch: str):
-    return tuple(ResNetC4(arch, torch.device("meta")).state_dict())
+def _resnet_keys(arch: str, use_group_norm: bool):
+    return tuple(ResNetC4(arch, torch.device("meta"), use_group_norm=use_group_norm).state_dict())
 
 
 def _tensor(v) -> torch.Tensor:
@@ -59,14 +62,11 @@ def _tensor(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v))
 
 
-def _check_config(config) -> None:
-    if config.use_group_norm:
-        raise NotImplementedError("GroupNorm backbones are not ported")
-
-
-def resnet_state_dict(sd, arch: str, prefix: str = "", target: str = "backbone."):
-    """{target + k: sd[prefix + k]} for every key k of `ResNetC4(arch)`."""
-    return {target + k: _tensor(sd[prefix + k]) for k in _resnet_keys(arch)}
+def resnet_state_dict(sd, config, prefix: str = "", target: str = "backbone."):
+    """{target + k: sd[prefix + k]} for every key k of the config's
+    `ResNetC4` (its arch, BatchNorm or GroupNorm)."""
+    keys = _resnet_keys(config.backbone_arch, bool(config.use_group_norm))
+    return {target + k: _tensor(sd[prefix + k]) for k in keys}
 
 
 def transform_net_state_dict(sd, prefix: str = ""):
@@ -83,11 +83,10 @@ def import_os2d_torch_checkpoint(state_dict, config):
     """A reference Os2dModel state_dict (the "net" entry of its checkpoint,
     os2d/utils/logger.py:137-160) -> the port's state_dict
     (os2d_tpu/models/os2d.py:210-232)."""
-    _check_config(config)
-    sd = resnet_state_dict(state_dict, config.backbone_arch, BACKBONE_PREFIX)
+    sd = resnet_state_dict(state_dict, config, BACKBONE_PREFIX)
     sd.update(transform_net_state_dict(state_dict, ALIGNER_PREFIX))
     if not config.merge_branch_parameters:
-        sd.update(resnet_state_dict(state_dict, config.backbone_arch, LABEL_BACKBONE_PREFIX,
+        sd.update(resnet_state_dict(state_dict, config, LABEL_BACKBONE_PREFIX,
                                     "label_backbone."))
     return sd
 
@@ -117,7 +116,6 @@ def import_weakalign_checkpoint(state_dict, config, model):
     FeatureRegression.* -> the TransformNet, linear.weight reshaped to a
     [-1, 64, 5, 5] convolution. A file that lacks backbone layers keeps the
     model's backbone whole."""
-    _check_config(config)
     remap = {"conv1.": "FeatureExtraction.model.0.", "bn1.": "FeatureExtraction.model.1."}
     for layer, src, blocks in (("layer1", 4, 3), ("layer2", 5, 4), ("layer3", 6, 23)):
         for idx in range(blocks):
@@ -129,7 +127,7 @@ def import_weakalign_checkpoint(state_dict, config, model):
                 resnet_sd[tgt + k[len(src):]] = state_dict[k]
     sd = _current_state_dict(model, config)
     try:
-        _with_backbone(sd, resnet_state_dict(resnet_sd, config.backbone_arch), config)
+        _with_backbone(sd, resnet_state_dict(resnet_sd, config), config)
     except KeyError:
         pass  # partial init: keep the backbone where weakalign lacks layers
 
@@ -242,7 +240,6 @@ def load_checkpoint_file(path, config, model=None):
     if isinstance(checkpoint, dict) and "net" in checkpoint:
         net = checkpoint["net"]
         if any(k.startswith(PORT_PREFIXES) for k in net):
-            _check_config(config)
             return {k: _tensor(v) for k, v in net.items()}, checkpoint.get("optimizer")
         return import_os2d_torch_checkpoint(net, config), checkpoint.get("optimizer")
     if isinstance(checkpoint, dict) and "state_dict" in checkpoint and any(
@@ -256,6 +253,5 @@ def load_checkpoint_file(path, config, model=None):
         return import_os2d_torch_checkpoint(sd, config), None
 
     # a backbone alone (step 4 of the reference cascade)
-    _check_config(config)
-    backbone = resnet_state_dict(convert_any_backbone(sd), config.backbone_arch)
+    backbone = resnet_state_dict(convert_any_backbone(sd), config)
     return _with_backbone(_current_state_dict(model, config), backbone, config), None

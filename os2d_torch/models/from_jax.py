@@ -2,7 +2,8 @@
 the `Os2dModel` state_dict.
 
 Convolutions go from HWIO to OIHW; BatchNorm's scale/bias/mean/var become
-weight/bias/running_mean/running_var; the TransformationNet's conv biases map
+weight/bias/running_mean/running_var, and a GroupNorm slot's scale/bias
+(no running statistics) weight/bias; the TransformationNet's conv biases map
 across; `label_backbone` is read when present (os2d_tpu/models/os2d.py:6-16).
 Folded params (`os2d_tpu.models.os2d.fold_inference_params`) convert too:
 a `{"folded_bias": b}` slot becomes `<bn>.folded_bias` and a TransformNet
@@ -32,14 +33,15 @@ def _bn(sd, prefix: str, p) -> None:
     if "folded_bias" in p:
         sd[prefix + ".folded_bias"] = _vec(p["folded_bias"])
         return
-    if "mean" not in p:
+    if set(p) not in ({"scale", "bias", "mean", "var"}, {"scale", "bias"}):
         raise ValueError(
-            f"{prefix}: only frozen BatchNorm (scale/bias/mean/var) or its folded "
-            f"bias is ported, got keys {sorted(p)}")
+            f"{prefix}: expected frozen BatchNorm (scale/bias/mean/var), GroupNorm "
+            f"(scale/bias) or a folded bias, got keys {sorted(p)}")
     sd[prefix + ".weight"] = _vec(p["scale"])
     sd[prefix + ".bias"] = _vec(p["bias"])
-    sd[prefix + ".running_mean"] = _vec(p["mean"])
-    sd[prefix + ".running_var"] = _vec(p["var"])
+    if "mean" in p:
+        sd[prefix + ".running_mean"] = _vec(p["mean"])
+        sd[prefix + ".running_var"] = _vec(p["var"])
 
 
 def resnet_state_dict_from_jax(params, prefix: str = "") -> Dict[str, torch.Tensor]:

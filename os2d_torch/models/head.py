@@ -18,15 +18,17 @@ from typing import NamedTuple
 import torch
 
 from ..ops.geometry import (
+    affine_grid_2d,
     affine_grid_corners,
     affine_grid_envelope,
     clip_jax_grad,
     invert_affine_2x3,
     l2_normalize_channels,
+    local_to_global_grid,
 )
 from ..ops.resample_grad import FORWARD as RESAMPLE_FORWARD
 from ..ops.resample_grad import resample_correlation_autograd
-from ..ops.sampling import linspace, resize_bilinear_align_corners
+from ..ops.sampling import grid_resample_operands, linspace, resize_bilinear_align_corners
 from ..structures.boxes import clip_to_min_size, encode_boxes, strided_anchor_grid
 from ..structures.feature_map import (
     ALIGNER_GRID_SIZE,
@@ -100,6 +102,34 @@ def build_class_head(class_feature_maps) -> ClassHead:
     return ClassHead(feats, make_class_pool_mask(feats.shape[0], feats.device, feats.dtype))
 
 
+class QuantizedClassHead(NamedTuple):
+    """int8-quantized class-feature bank (os2d_tpu/models/head.py:118-133):
+    a quarter of the fp32 bank's device memory. Features are L2-normalized
+    over F, so per-class absmax scaling keeps the quantization step near
+    absmax/127. The bank stays int8 on the device; each class chunk is
+    dequantized there when the head runs (`Os2dModel.apply_head`)."""
+
+    class_feats_q: torch.Tensor  # [C, 15, 15, F] int8
+    scales: torch.Tensor  # [C] fp32: absmax / 127
+    pool_mask: torch.Tensor  # [C, 15, 15]
+
+
+def quantize_class_head(head: ClassHead) -> QuantizedClassHead:
+    """Per-class absmax / 127 scales and round-half-to-even int8 values, as
+    `os2d_tpu.models.head.quantize_class_head` (torch.round rounds half to
+    even, as jnp.round)."""
+    absmax = head.class_feats.abs().amax(dim=(1, 2, 3))
+    scales = (torch.clamp(absmax, min=1e-12) / 127.0).float()
+    q = torch.clamp(torch.round(head.class_feats / scales[:, None, None, None]), -127, 127)
+    return QuantizedClassHead(q.to(torch.int8), scales, head.pool_mask)
+
+
+def dequantize_class_head(qhead: QuantizedClassHead) -> ClassHead:
+    """int8 values times their class's scale, in fp32."""
+    feats = qhead.class_feats_q.float() * qhead.scales[:, None, None, None]
+    return ClassHead(feats, qhead.pool_mask)
+
+
 def correlation_gemm(a, b, compute_dtype=torch.float32):
     """a [M, F] @ b [N, F].T with both operands rounded to `compute_dtype`
     and an fp32 result: JAX's einsum with preferred_element_type=float32
@@ -131,6 +161,44 @@ def _prepare_theta(tparams, simple_affine: bool):
     return tparams.reshape(-1, 2, 3)
 
 
+def _interior_first_resample(corr, theta, anchor_boxes, pool_mask, precision: str):
+    """(cls, cls_detached) on the interior-first corr: sample coordinates
+    straight from theta as an outer product over the interior template
+    lattice, in the resample's t-major [B, C, T, A] layout, the same scalar
+    expression per point as the grid path (os2d_tpu/models/head.py:254-299),
+    and the resample reads the interior prefix of corr as it is."""
+    b, c, h, w, _ = corr.shape
+    a = h * w
+    device = corr.device
+    bw = POOL_BORDER_WIDTH
+    ts = slice(bw, TEMPLATE_H - bw)
+    n_side = TEMPLATE_H - 2 * bw
+    n_int = n_side * (TEMPLATE_W - 2 * bw)
+    # a bfloat16 bank's pool mask takes the fp32 of its rounded values, as
+    # JAX casts it to corr's dtype (os2d_tpu/ops/sampling.py:182)
+    mask_t = pool_mask[:, ts, ts].transpose(1, 2).reshape(c, n_int)
+    mask_t = mask_t.float().contiguous()
+
+    th6 = theta.reshape(b, c, 1, a, 2, 3)
+    xs_int = linspace(-1.0, 1.0, TEMPLATE_W, device=device)[ts]
+    ys_int = linspace(-1.0, 1.0, TEMPLATE_H, device=device)[ts]
+    # t = tx * th_int + ty (the _interior_permutation / weakalign order)
+    ux = xs_int.repeat_interleave(n_side)[None, None, :, None]
+    uy = ys_int.repeat(TEMPLATE_W - 2 * bw)[None, None, :, None]
+    lx = th6[..., 0, 0] * ux + th6[..., 0, 1] * uy + th6[..., 0, 2]
+    ly = th6[..., 1, 0] * ux + th6[..., 1, 1] * uy + th6[..., 1, 2]
+    fb = anchor_boxes.reshape(1, 1, 1, a, 4)
+    fx_a = (fb[..., 2] - fb[..., 0]) / 2.0
+    fx_b = (fb[..., 2] + fb[..., 0]) / 2.0
+    fy_a = (fb[..., 3] - fb[..., 1]) / 2.0
+    fy_b = (fb[..., 3] + fb[..., 1]) / 2.0
+    gx = clip_jax_grad((lx * fx_a + fx_b) / (w - 1) * 2.0 - 1.0, -1.0, 1.0)
+    gy = clip_jax_grad((ly * fy_a + fy_b) / (h - 1) * 2.0 - 1.0, -1.0, 1.0)
+    px = (gx + 1.0) * 0.5 * (w - 1)
+    py = (gy + 1.0) * 0.5 * (h - 1)
+    return resample_correlation_autograd(corr, px, py, mask_t, precision)
+
+
 def head_forward(
     transform_net,
     image_feature_maps,
@@ -151,9 +219,15 @@ def head_forward(
       resample_precision: "default" runs the resample as the bf16 hat-weight
         product with fp32 sums (ops/hat_resample.py, the one-pass bf16 tier of
         os2d_tpu/ops/sampling.py); "high" and "highest" run the fp32 gather
-        (ops/resample.py); "int8" is not ported.
-      corr_interior_first: only the interior-first channel order (the JAX
-        default) is ported.
+        (ops/resample.py); "int8" runs the int8 hat form (ops/int8_resample.py)
+        and, where a graph is recorded, "default" in its place (it has no
+        gradient, os2d_tpu/models/head.py:248-251).
+      corr_interior_first: True (the JAX default) emits corr with the pool
+        mask's interior channels first, so the resample reads a prefix view,
+        and computes px/py straight from theta; False keeps the natural
+        channel order and runs the grid path of os2d_tpu/models/head.py:
+        305-322 (affine grids, box-local to global, normalize, clip, then
+        the interior compacted out of corr by a strided copy).
       compute_dtype: the correlation's operands are rounded to it and its
         output is fp32 (`correlation_gemm`); the TransformNet follows its own
         compute dtype. The feature maps are L2-normalized in their own dtype.
@@ -173,13 +247,8 @@ def head_forward(
       fm_size:       (H, W)
     with A = H * W, anchor a = h * W + w.
     """
-    if resample_precision == "int8":
-        raise NotImplementedError("the int8 resample tier is not ported")
     if resample_precision not in RESAMPLE_FORWARD:
         raise ValueError(f"unknown resample_precision {resample_precision!r}")
-    if not corr_interior_first:
-        raise NotImplementedError(
-            "only corr_interior_first=True is ported; the grid path is not")
 
     b, h, w, f = image_feature_maps.shape
     c = class_head.class_feats.shape[0]
@@ -189,11 +258,14 @@ def head_forward(
 
     fm = l2_normalize_channels(image_feature_maps, eps=1e-5, dim=-1)
 
-    # dense correlation in the interior-first channel order; corr channel of
-    # template point (x_c, y_c) is t = x_c * 15 + y_c before the permutation
-    # (weakalign order, os2d/modeling/head.py:342-350)
-    perm = torch.tensor(_interior_permutation(), device=device)
-    feats_t = class_head.class_feats.transpose(1, 2).reshape(c, t_dim, f)[:, perm]
+    # dense correlation; corr channel of template point (x_c, y_c) is
+    # t = x_c * 15 + y_c in the natural order (weakalign order,
+    # os2d/modeling/head.py:342-350), then permuted interior-first
+    feats_t = class_head.class_feats.transpose(1, 2).reshape(c, t_dim, f)
+    perm = None
+    if corr_interior_first:
+        perm = torch.tensor(_interior_permutation(), device=device)
+        feats_t = feats_t[:, perm]
     corr = correlation_gemm(fm.reshape(b * a, f), feats_t.reshape(c * t_dim, f), compute_dtype)
     corr = corr.reshape(b, h, w, c, t_dim).permute(0, 3, 1, 2, 4).contiguous()  # [B, C, H, W, T]
 
@@ -203,39 +275,26 @@ def head_forward(
     if use_inverse_geom_model:
         theta = invert_affine_2x3(theta)
 
-    # (1) recognition: sample coordinates straight from theta as an outer
-    # product over the interior template lattice, in the resample's t-major
-    # [B, C, T, A] layout, w.r.t. feature-map-level anchors (box 15, stride 1)
-    bw = POOL_BORDER_WIDTH
-    ts = slice(bw, TEMPLATE_H - bw)
-    n_side = TEMPLATE_H - 2 * bw
-    n_int = n_side * (TEMPLATE_W - 2 * bw)
-    # a bfloat16 bank's pool mask takes the fp32 of its rounded values, as
-    # JAX casts it to corr's dtype (os2d_tpu/ops/sampling.py:182)
-    mask_t = class_head.pool_mask[:, ts, ts].transpose(1, 2).reshape(c, n_int)
-    mask_t = mask_t.float().contiguous()
-
-    th6 = theta.reshape(b, c, 1, a, 2, 3)
-    xs_int = linspace(-1.0, 1.0, TEMPLATE_W, device=device)[ts]
-    ys_int = linspace(-1.0, 1.0, TEMPLATE_H, device=device)[ts]
-    # t = tx * th_int + ty (the _interior_permutation / weakalign order)
-    ux = xs_int.repeat_interleave(n_side)[None, None, :, None]
-    uy = ys_int.repeat(TEMPLATE_W - 2 * bw)[None, None, :, None]
-    lx = th6[..., 0, 0] * ux + th6[..., 0, 1] * uy + th6[..., 0, 2]
-    ly = th6[..., 1, 0] * ux + th6[..., 1, 1] * uy + th6[..., 1, 2]
+    # (1) recognition w.r.t. feature-map-level anchors (box 15, stride 1)
     fb = strided_anchor_grid(
         w, h, float(ALIGNER_RECEPTIVE_FIELD.w), float(ALIGNER_RECEPTIVE_FIELD.h),
         float(ALIGNER_STRIDE.w), float(ALIGNER_STRIDE.h), device=device,
-    ).reshape(1, 1, 1, a, 4)
-    fx_a = (fb[..., 2] - fb[..., 0]) / 2.0
-    fx_b = (fb[..., 2] + fb[..., 0]) / 2.0
-    fy_a = (fb[..., 3] - fb[..., 1]) / 2.0
-    fy_b = (fb[..., 3] + fb[..., 1]) / 2.0
-    gx = clip_jax_grad((lx * fx_a + fx_b) / (w - 1) * 2.0 - 1.0, -1.0, 1.0)
-    gy = clip_jax_grad((ly * fy_a + fy_b) / (h - 1) * 2.0 - 1.0, -1.0, 1.0)
-    px = (gx + 1.0) * 0.5 * (w - 1)
-    py = (gy + 1.0) * 0.5 * (h - 1)
-    cls, cls_detached = resample_correlation_autograd(corr, px, py, mask_t, resample_precision)
+    )
+    if perm is None:
+        # the grid path: [B, C, H, W, 15, 15, 2] grids, the interior
+        # compacted out of the natural channel order
+        grids_local = affine_grid_2d(theta, TEMPLATE_H, TEMPLATE_W).reshape(
+            b, c, h, w, TEMPLATE_H, TEMPLATE_W, 2)
+        grids_fm = local_to_global_grid(grids_local, fb.reshape(1, 1, h, w, 4))
+        gx = grids_fm[..., 0] / (w - 1) * 2.0 - 1.0
+        gy = grids_fm[..., 1] / (h - 1) * 2.0 - 1.0
+        grids_unit = clip_jax_grad(torch.stack([gx, gy], dim=-1), -1.0, 1.0)
+        cls, cls_detached = resample_correlation_autograd(
+            *grid_resample_operands(corr, grids_unit, class_head.pool_mask, POOL_BORDER_WIDTH),
+            resample_precision)
+    else:
+        cls, cls_detached = _interior_first_resample(
+            corr, theta, fb, class_head.pool_mask, resample_precision)
 
     # (2) localization: envelope + corners in closed form from theta w.r.t.
     # image-level anchors (box 240, stride 16)

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ..structures.feature_map import FeatureMapSize, feature_map_size_for_image
-from .head import ClassHead, build_class_head, head_forward
+from .head import ClassHead, QuantizedClassHead, build_class_head, dequantize_class_head, head_forward
 from .resnet import ResNetC4, fold_batchnorm_c4
 from .transform_net import TransformNet, fold_batchnorm_transform_net
 
@@ -41,7 +41,7 @@ class Os2dConfig:
     merge_branch_parameters: bool = True
     use_inverse_geom_model: bool = True
     use_simplified_affine_model: bool = False
-    use_group_norm: bool = False
+    use_group_norm: bool = False  # GroupNorm(32) in both backbones
     class_image_size: int = 240
     normalization_mean: tuple = IMG_NORMALIZATION_MEAN
     normalization_std: tuple = IMG_NORMALIZATION_STD
@@ -49,9 +49,11 @@ class Os2dConfig:
     # correlation's operands in bf16, as the JAX package rounds them
     resample_precision: str = "default"  # "default": the bf16 hat-weight
     # resample (csrc/hat_resample.cu); "high" | "highest": the fp32 gather
-    # (csrc/resample.cu); "int8" is not ported
+    # (csrc/resample.cu); "int8": the int8 hat form
+    # (csrc/int8_hat_resample.cu; "default" where a graph is recorded)
     corr_interior_first: bool = True  # correlation channels with the
-    # pool-mask interior as a contiguous prefix (the only order ported)
+    # pool-mask interior as a contiguous prefix; False: the natural order
+    # and the grid path (models/head.py)
 
 
 def normalize_images(images_nhwc, config: Os2dConfig):
@@ -103,8 +105,6 @@ class Os2dModel(nn.Module):
                 "available; pass device='cpu' to run on the CPU")
         if config.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {config.compute_dtype!r}")
-        if config.use_group_norm:
-            raise NotImplementedError("GroupNorm backbones are not ported")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -112,9 +112,10 @@ class Os2dModel(nn.Module):
         self.device = device
         self.compute_dtype = dtype = COMPUTE_DTYPES[config.compute_dtype]
         self.folded = False
-        self.backbone = ResNetC4(config.backbone_arch, device, dtype)
+        self.backbone = ResNetC4(config.backbone_arch, device, dtype, config.use_group_norm)
         self.label_backbone = (None if config.merge_branch_parameters
-                               else ResNetC4(config.backbone_arch, device, dtype))
+                               else ResNetC4(config.backbone_arch, device, dtype,
+                                             config.use_group_norm))
         self.transform_net = TransformNet(
             4 if config.use_simplified_affine_model else 6, device, dtype)
         init_os2d_params(self, seed)
@@ -161,9 +162,13 @@ class Os2dModel(nn.Module):
                 feats[i] = fm[j]
         return build_class_head(feats)
 
-    def apply_head(self, feature_maps, class_head: ClassHead):
+    def apply_head(self, feature_maps, class_head):
         """Feature maps + class head -> dict(loc, cls, cls_detached, corners,
-        fm_size); differentiable when grad mode is on."""
+        fm_size); differentiable when grad mode is on. A QuantizedClassHead
+        (a chunk of an int8 bank) is dequantized to fp32 on its device first,
+        so the bank itself stays int8 (os2d_tpu/models/os2d.py:150-160)."""
+        if isinstance(class_head, QuantizedClassHead):
+            class_head = dequantize_class_head(class_head)
         return head_forward(
             self.transform_net,
             feature_maps,

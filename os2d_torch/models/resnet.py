@@ -1,5 +1,5 @@
-"""ResNet50/101-C4 feature extractor with frozen BatchNorm: counterpart of
-`os2d_tpu/models/resnet.py` (the reference backbone,
+"""ResNet50/101-C4 feature extractor with frozen BatchNorm or GroupNorm(32):
+counterpart of `os2d_tpu/models/resnet.py` (the reference backbone,
 os2d/modeling/feature_extractor.py:23-130).
 
 torchvision ResNet v1.5 bottlenecks (stride on the 3x3 conv), stem +
@@ -15,6 +15,13 @@ it; a frozen BatchNorm computes in fp32 (so with bfloat16 the residual sums
 and the C4 output are fp32). `fold_batchnorm_c4` folds every BatchNorm into
 its convolution for inference; a folded bias is rounded to the compute dtype
 and added in it, so the folded bfloat16 backbone is bfloat16 end to end.
+
+With `use_group_norm` every normalization is GroupNorm(32) (the reference's
+alternative, feature_extractor.py:96-105; os2d_tpu/models/resnet.py:70-77):
+statistics of the activations over (H, W, C/32) in fp32, eps 1e-5, a weight
+and a bias (state_dict keys `<bn>.weight`, `<bn>.bias`, no running stats),
+fp32 output in every compute dtype. It depends on the activations and does
+not fold.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ RESNET_DEPTHS = {
 }
 
 BN_EPS = 1e-5
+GROUPNORM_NUMGROUPS = 32
 
 
 class Conv2d(nn.Module):
@@ -84,6 +92,28 @@ class FrozenBatchNorm2d(nn.Module):
         return x.float() * scale[:, None, None] + shift[:, None, None]
 
 
+class GroupNorm2d(nn.Module):
+    """GroupNorm(32) over the channels of an NCHW tensor (a view of
+    channels-last memory), as the JAX package's `_norm` computes it for a
+    slot without running statistics: the statistics and the output in fp32,
+    eps 1e-5. Computed by F.group_norm on the fp32 input: its mean and
+    variance are JAX's two-pass ones up to the order of the fp32 sums
+    (tests/test_torch_group_norm.py holds the C4 features to JAX's within
+    rtol and atol 1e-4)."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels, device=device))
+        self.bias = nn.Parameter(torch.empty(channels, device=device))
+
+    def reset_parameters(self):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        return F.group_norm(x.float(), GROUPNORM_NUMGROUPS, self.weight, self.bias, BN_EPS)
+
+
 class FoldedBatchNorm2d(nn.Module):
     """What remains of a frozen BatchNorm folded into the preceding
     convolution (`fold_batchnorm_c4`): a bias, `folded_bias`, rounded to the
@@ -98,20 +128,21 @@ class FoldedBatchNorm2d(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin: int, width: int, stride: int, device=None):
+    def __init__(self, cin: int, width: int, stride: int, device=None,
+                 norm=FrozenBatchNorm2d):
         super().__init__()
         cout = width * 4
         self.conv1 = Conv2d(cin, width, 1, device=device)
-        self.bn1 = FrozenBatchNorm2d(width, device)
+        self.bn1 = norm(width, device)
         self.conv2 = Conv2d(width, width, 3, stride, 1, device=device)
-        self.bn2 = FrozenBatchNorm2d(width, device)
+        self.bn2 = norm(width, device)
         self.conv3 = Conv2d(width, cout, 1, device=device)
-        self.bn3 = FrozenBatchNorm2d(cout, device)
+        self.bn3 = norm(cout, device)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 Conv2d(cin, cout, 1, stride, device=device),
-                FrozenBatchNorm2d(cout, device),
+                norm(cout, device),
             )
 
     def forward(self, x, dtype=torch.float32):
@@ -136,28 +167,31 @@ class ResNetC4(nn.Module):
     """images [N, H, W, 3] (already normalized) -> C4 features
     [N, ceil(H/16), ceil(W/16), 1024]."""
 
-    def __init__(self, arch: str = "resnet50", device=None, compute_dtype=torch.float32):
+    def __init__(self, arch: str = "resnet50", device=None, compute_dtype=torch.float32,
+                 use_group_norm: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        norm = GroupNorm2d if use_group_norm else FrozenBatchNorm2d
         self.conv1 = Conv2d(3, 64, 7, 2, 3, device=device)
-        self.bn1 = FrozenBatchNorm2d(64, device)
+        self.bn1 = norm(64, device)
         cin = 64
         for li, (blocks, width) in enumerate(zip(RESNET_DEPTHS[arch], (64, 128, 256))):
             stride = 1 if li == 0 else 2
             layer = []
             for bi in range(blocks):
-                layer.append(Bottleneck(cin, width, stride if bi == 0 else 1, device))
+                layer.append(Bottleneck(cin, width, stride if bi == 0 else 1, device, norm))
                 cin = width * 4
             self.add_module(f"layer{li + 1}", nn.Sequential(*layer))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        """He-normal convolutions and identity BatchNorms, the distributions of
-        `init_resnet_c4_params` (the numbers differ from JAX's)."""
+        """He-normal convolutions, identity BatchNorms and GroupNorms (weight
+        1, bias 0), the distributions of `init_resnet_c4_params` (the numbers
+        differ from JAX's)."""
         for module in self.modules():
             if isinstance(module, Conv2d):
                 _he_normal_(module.weight, generator)
-            elif isinstance(module, FrozenBatchNorm2d):
+            elif isinstance(module, (FrozenBatchNorm2d, GroupNorm2d)):
                 module.reset_parameters()
 
     def blocks(self):
@@ -176,9 +210,13 @@ class ResNetC4(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
-def _fold_conv_bn(conv: Conv2d, bn: FrozenBatchNorm2d) -> FoldedBatchNorm2d:
+def _fold_conv_bn(conv: Conv2d, bn):
     """Scales conv's output channels by bn's factor f in place and returns
-    the remaining bias - mean * f (os2d_tpu/models/resnet.py:94-109), fp32."""
+    the remaining bias - mean * f (os2d_tpu/models/resnet.py:94-109), fp32.
+    A GroupNorm depends on the activations and cannot fold: it is returned
+    as it is, and conv is left alone."""
+    if isinstance(bn, GroupNorm2d):
+        return bn
     f = bn.folding_factor()
     conv.weight = nn.Parameter(conv.weight * f[:, None, None, None], requires_grad=False)
     return FoldedBatchNorm2d(bn.bias - bn.running_mean * f)
@@ -189,8 +227,9 @@ def fold_batchnorm_c4(backbone: ResNetC4) -> ResNetC4:
     """Inference-only: a copy of `backbone` with every frozen BatchNorm
     folded into its convolution (os2d_tpu/models/resnet.py:112-144); the
     caller's module is left as it was. The BatchNorm slots become
-    `FoldedBatchNorm2d` (state_dict key `<bn>.folded_bias`). Folded weights
-    are not for training: the fold freezes the statistics into them."""
+    `FoldedBatchNorm2d` (state_dict key `<bn>.folded_bias`); GroupNorm slots
+    stay as they are. Folded weights are not for training: the fold freezes
+    the statistics into them."""
     folded = copy.deepcopy(backbone)
     folded.bn1 = _fold_conv_bn(folded.conv1, folded.bn1)
     for block in folded.blocks():

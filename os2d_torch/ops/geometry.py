@@ -1,4 +1,4 @@
-"""Grid/transform geometry ops: the eval-path part of `os2d_tpu/ops/geometry.py`.
+"""Grid/transform geometry ops: counterpart of `os2d_tpu/ops/geometry.py`.
 
 Replacements for F.affine_grid (align_corners=True) and the batched 3x3
 torch.inverse used by the reference aligner (os2d/modeling/head.py:111-151,
@@ -8,6 +8,8 @@ torch.inverse used by the reference aligner (os2d/modeling/head.py:111-151,
 from __future__ import annotations
 
 import torch
+
+from .sampling import linspace
 
 
 def abs_jax_grad(x):
@@ -37,6 +39,46 @@ def l2_normalize_channels(x, eps: float = 1e-6, dim: int = -1):
     """
     norm = torch.sqrt(torch.sum(torch.square(x), dim=dim, keepdim=True))
     return x / (norm + eps)
+
+
+def affine_grid_2d(theta, out_h: int, out_w: int):
+    """F.affine_grid(theta, (N, 1, out_h, out_w), align_corners=True), as
+    `os2d_tpu.ops.geometry.affine_grid_2d` computes it: explicit
+    multiply-adds (t0 * gx + t1 * gy) + t2 over JAX's linspace lattice.
+
+    Args:
+      theta: [..., 2, 3] affine matrices mapping OUTPUT grid coords (x, y in
+        [-1, 1]) to input coords.
+    Returns:
+      grid [..., out_h, out_w, 2] with (x, y) coordinates.
+    """
+    xs = linspace(-1.0, 1.0, out_w, device=theta.device).to(theta.dtype)
+    ys = linspace(-1.0, 1.0, out_h, device=theta.device).to(theta.dtype)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # [h, w]
+    t = theta[..., None, None]  # [..., 2, 3, 1, 1]
+    grid_x = t[..., 0, 0, :, :] * gx + t[..., 0, 1, :, :] * gy + t[..., 0, 2, :, :]
+    grid_y = t[..., 1, 0, :, :] * gx + t[..., 1, 1, :, :] * gy + t[..., 1, 2, :, :]
+    return torch.stack([grid_x, grid_y], dim=-1)
+
+
+def local_to_global_grid(grids_local, boxes_xyxy):
+    """Map grids from box-local [-1, 1] coords to global coordinates
+    (os2d/modeling/head.py:18-40; os2d_tpu/ops/geometry.py:123-142).
+
+    Args:
+      grids_local: [..., gh, gw, 2] local (x, y) in [-1, 1].
+      boxes_xyxy:  [..., 4] boxes, broadcastable against grids_local's leading
+        dims (without the gh, gw, 2 suffix).
+    Returns:
+      [..., gh, gw, 2] global coordinates.
+    """
+    x_a = (boxes_xyxy[..., 2] - boxes_xyxy[..., 0]) / 2.0
+    x_b = (boxes_xyxy[..., 2] + boxes_xyxy[..., 0]) / 2.0
+    y_a = (boxes_xyxy[..., 3] - boxes_xyxy[..., 1]) / 2.0
+    y_b = (boxes_xyxy[..., 3] + boxes_xyxy[..., 1]) / 2.0
+    gx = grids_local[..., 0] * x_a[..., None, None] + x_b[..., None, None]
+    gy = grids_local[..., 1] * y_a[..., None, None] + y_b[..., None, None]
+    return torch.stack([gx, gy], dim=-1)
 
 
 def affine_grid_envelope(theta):

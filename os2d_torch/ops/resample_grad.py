@@ -4,12 +4,17 @@
 one way to the resample, in eval (under no_grad, where it records nothing)
 and in training. Its forward is
 the tier's forward (the bf16 hat kernel `ops/hat_resample.py` at
-"default", the fp32 gather `ops/resample.py` at "high"/"highest"; their
-plain versions on CPU tensors), its backward the CUDA kernels of
+"default", the fp32 gather `ops/resample.py` at "high"/"highest", the int8
+hat kernel `ops/int8_resample.py` at "int8"; their plain versions on CPU
+tensors), its backward the CUDA kernels of
 `csrc/resample_backward.cu` on the card and its plain version
 `ops/sampling.resample_backward_reference` on the CPU. The backward is the
 gradient of the hat form under JAX's rules, fp32, at every tier: the JAX
-trainer differentiates that form whatever the forward's precision.
+trainer differentiates that form whatever the forward's precision. The
+int8 tier has no gradient (it rounds the sample coordinates' hat weights):
+where a graph is recorded the "default" tier runs in its place, as JAX's
+head falls back in train mode (os2d_tpu/models/head.py:248-251); under
+no_grad (eval, eval loss metrics, mining) int8 runs.
 
 It returns the scores twice, as cls and cls_detached (the JAX head's second
 resample with px/py detached, os2d_tpu/models/head.py:300-302; the values are
@@ -37,6 +42,7 @@ import torch
 
 from .cuda import CudaKernel
 from .hat_resample import resample_correlation_hat
+from .int8_resample import resample_correlation_int8
 from .resample import check_contract, resample_correlation
 from .sampling import resample_backward_reference
 
@@ -45,12 +51,12 @@ from .sampling import resample_backward_reference
 ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p]
 KERNEL = CudaKernel("resample_backward.cu", "os2d_resample_correlation_backward", ARGTYPES)
 
-# the resample tiers of the JAX package that are ported, by their forward:
-# "default" the bf16 hat-weight form (csrc/hat_resample.cu), "high" and
-# "highest" the fp32 gather (csrc/resample.cu); the head's eval path takes
-# them from here too
+# the resample tiers of the JAX package, by their forward: "default" the
+# bf16 hat-weight form (csrc/hat_resample.cu), "high" and "highest" the
+# fp32 gather (csrc/resample.cu), "int8" the int8 hat-weight form
+# (csrc/int8_hat_resample.cu, no gradient)
 FORWARD = {"default": resample_correlation_hat, "high": resample_correlation,
-           "highest": resample_correlation}
+           "highest": resample_correlation, "int8": resample_correlation_int8}
 
 
 def resample_correlation_backward(g, g_sum, corr, px, py, mask_t):
@@ -109,8 +115,11 @@ class _ResampleTrain(torch.autograd.Function):
 def resample_correlation_autograd(corr, px, py, mask_t, precision: str):
     """(cls, cls_detached), each [B, C, H, W], from the full corr tensor
     [B, C, H, W, T_full] (the prefix t < T = px.shape[2] is read) at the
-    tier `precision`, differentiable by corr, px and py (see the module
-    docstring)."""
+    tier `precision`, differentiable by corr, px and py; "int8" runs as
+    "default" where a graph is recorded (see the module docstring)."""
     if precision not in FORWARD:
-        raise ValueError(f"no resample tier {precision!r} with a gradient")
+        raise ValueError(f"unknown resample_precision {precision!r}")
+    if precision == "int8" and torch.is_grad_enabled() and (
+            corr.requires_grad or px.requires_grad or py.requires_grad):
+        precision = "default"
     return _ResampleTrain.apply(corr, px, py, mask_t, precision)

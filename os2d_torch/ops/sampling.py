@@ -1,11 +1,16 @@
 """Bilinear sampling ops: align-corners resize, the antialiased pyramid
-resize, and the plain versions of the two correlation-map resamples.
+resize, the plain versions of the three correlation-map resamples and the
+grid contract of the resample.
 
 Counterpart of `os2d_tpu/ops/sampling.py`. The resample itself runs through
 `ops/resample.py` (fp32 gather; its CUDA kernel is held against
-`resample_correlation_from_pxpy_reference` below) or `ops/hat_resample.py`
+`resample_correlation_from_pxpy_reference` below), `ops/hat_resample.py`
 (bf16 hat-weight form; its CUDA kernel is held against
-`hat_resample_reference` below).
+`hat_resample_reference` below) or `ops/int8_resample.py` (the int8 hat
+form; its CUDA kernel is held against `int8_hat_resample_reference` below).
+`resample_correlation_map` and `resample_correlation_map_masked` take
+the [B, C, H, W, th, tw, 2] sampling grids of the Pallas kernels' contract
+(the head's `corr_interior_first=False` path) and run the tier's forward.
 """
 
 from __future__ import annotations
@@ -294,3 +299,112 @@ def hat_resample_reference(corr, px, py, mask_t):
         r = torch.matmul(wy, m[:, :, t])  # [B, C, A, W]: exact products, fp32 sums
         scores = scores + (r * _hat(px[:, :, t], iota_w)).sum(-1)
     return scores.reshape(b, c, h, w)
+
+
+# JAX's 1.0 / (127.0 * 127.0), the Python float cast to the fp32 of the row
+# sums it scales (os2d_tpu/ops/sampling.py:227)
+INT8_ROW_SCALE = float(np.float32(1.0 / (127.0 * 127.0)))
+
+
+def quantize_int8(x):
+    """clamp(round(x * 127), -127, 127) in fp32: the int8 tier's corr values
+    (round half to even, as jnp.round and the kernel's rintf)."""
+    return torch.clamp(torch.round(x * 127.0), -127.0, 127.0)
+
+
+def int8_hat_resample_reference(corr, px, py, mask_t):
+    """Plain PyTorch version of the `"int8"`-tier resample + masked pool
+    (the int8 branch of `os2d_tpu.ops.sampling.resample_correlation_from_pxpy`,
+    which JAX runs as XLA einsums on the int8 matrix unit), on the t-major
+    contract of `resample_correlation_from_pxpy_reference`:
+
+      q[h, w]    = clamp(round(corr[b, c, h, w, t] * 127), -127, 127)
+      wq_t[a, h] = round(max(0, 1 - |py - h|) * 127)
+      r_t[a, w]  = sum_h wq_t[a, h] q[h, w]                      (exact integers)
+      out[b, c, a] = sum_t (sum_w (r_t[a, w] * K) * wx_t[a, w]) * mask_t[c, t]
+
+    with K = fp32(1 / (127 * 127)), wx_t[a, w] = max(0, 1 - |px - w|) in
+    fp32, every product and sum rounded in fp32, t in order. q and wq are
+    integers held in fp32: their products and the sum of a hat row's two
+    non-zero terms are exact, and the other terms of the matrix product and
+    of the sum over w are exact zeros, so this equals the banded sum that
+    the CUDA kernel computes to the bit. JAX sums each chunk of 8 template
+    points before adding it, so the two packages differ in the last bits.
+
+    Args and result: those of `hat_resample_reference`.
+    """
+    b, c, h, w, _ = corr.shape
+    f32 = torch.float32
+    t_count = px.shape[2]
+    q = quantize_int8(corr[..., :t_count].permute(0, 1, 4, 2, 3))  # [B, C, T, H, W]
+    iota_h = torch.arange(h, dtype=f32, device=corr.device)
+    iota_w = torch.arange(w, dtype=f32, device=corr.device)
+    k = torch.tensor(INT8_ROW_SCALE, dtype=f32, device=corr.device)
+    scores = torch.zeros((b, c, h * w), dtype=f32, device=corr.device)
+    for t in range(t_count):
+        wq = torch.round(_hat(py[:, :, t], iota_h) * 127.0)  # [B, C, A, H]
+        r = torch.matmul(wq, q[:, :, t]) * k  # [B, C, A, W]: exact integer sums, scaled
+        term = (r * _hat(px[:, :, t], iota_w)).sum(-1)
+        scores = scores + term * mask_t[None, :, t, None]
+    return scores.reshape(b, c, h, w)
+
+
+def grid_resample_operands(corr, grids_unit, pool_mask, border: int = 0):
+    """The grid contract of both Pallas kernels (os2d_tpu/ops/sampling.py:
+    109-145, 317-335) -> the t-major operands of the resample kernels.
+
+    Args:
+      corr: [B, C, H, W, T] correlation maps in the NATURAL template order,
+        channel t = tx * th + ty.
+      grids_unit: [B, C, H, W, th, tw, 2] normalized (x, y) in [-1, 1].
+      pool_mask: [C, th, tw].
+      border: template points within `border` of the edge are left out (the
+        pool mask is zero there): the (th - 2 border) x (tw - 2 border)
+        interior channels are compacted out of corr by a strided copy.
+    Returns (corr_in [B, C, H, W, T'] contiguous, px, py [B, C, T', A],
+    mask_t [C, T']), t' = tx' * th' + ty' over the kept lattice.
+    """
+    th, tw = grids_unit.shape[-3], grids_unit.shape[-2]
+    if border:
+        ts = slice(border, th - border)
+        lead = corr.shape[:-1]
+        corr = corr.reshape(lead + (tw, th))[..., ts, ts]
+        th, tw = th - 2 * border, tw - 2 * border
+        corr = corr.reshape(lead + (tw * th,))
+        grids_unit = grids_unit[..., ts, ts, :]
+        pool_mask = pool_mask[..., ts, ts]
+    b, c, h, w, t = corr.shape
+    if th * tw != t:
+        raise ValueError(f"grids of {th}x{tw} template points for {t} corr channels")
+    a = h * w
+    grids = grids_unit.reshape(b, c, a, th, tw, 2)
+    px = (grids[..., 0] + 1.0) * 0.5 * (w - 1)
+    py = (grids[..., 1] + 1.0) * 0.5 * (h - 1)
+    # [B, C, A, th, tw] -> [B, C, T, A] with T-index = tx*th + ty
+    px = px.permute(0, 1, 4, 3, 2).reshape(b, c, t, a).contiguous()
+    py = py.permute(0, 1, 4, 3, 2).reshape(b, c, t, a).contiguous()
+    mask_t = pool_mask.transpose(1, 2).reshape(c, t).float().contiguous()
+    return corr.contiguous(), px, py, mask_t
+
+
+def resample_correlation_map(corr, grids_unit, pool_mask, precision: str = "default"):
+    """Scores [B, C, H, W] of the resample + masked pool on the grid contract
+    of the Pallas kernels (`os2d_tpu.ops.sampling.resample_correlation_map`):
+    the grids turned into t-major px/py, then the tier's forward
+    (`ops/resample_grad.py`, differentiable by corr and the grids)."""
+    from .resample_grad import resample_correlation_autograd
+
+    return resample_correlation_autograd(
+        *grid_resample_operands(corr, grids_unit, pool_mask), precision)[0]
+
+
+def resample_correlation_map_masked(corr, grids_unit, pool_mask, border: int,
+                                    precision: str = "high"):
+    """`resample_correlation_map` over the pool mask's interior only
+    (`os2d_tpu.ops.sampling.resample_correlation_map_masked`): the interior
+    channels are compacted out of the natural 225-channel order, and the
+    border's template points, whose mask is zero, are not sampled."""
+    from .resample_grad import resample_correlation_autograd
+
+    return resample_correlation_autograd(
+        *grid_resample_operands(corr, grids_unit, pool_mask, border), precision)[0]

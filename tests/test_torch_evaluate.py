@@ -170,7 +170,6 @@ def test_evaluate_rejects_unported_options(loaders):
     model = Os2dModel(Os2dConfig(), device="cpu")
     for key, value in (("visualization.eval.show_class_heatmaps", True),
                        ("visualization.eval.show_detections", True),
-                       ("tpu.quantize_class_feats", True),
                        ("tpu.upload_pixel_format", "yuv420")):
         cfg = get_default_cfg()
         cfg.merge_from_list([key, str(value)])

@@ -91,16 +91,6 @@ def test_head_forward_default_tier_matches_jax(simple_affine, inverse):
     assert float(np.abs(got["cls"].numpy() - np.asarray(want["cls"])).max()) > ATOL
 
 
-def test_head_rejects_unported_options():
-    net = TransformNet(6, device="cpu")
-    fm = torch.zeros(1, 4, 5, 8)
-    ch = thead.build_class_head(torch.ones(2, 15, 15, 8))
-    with pytest.raises(NotImplementedError, match="int8"):
-        thead.head_forward(net, fm, ch, resample_precision="int8")
-    with pytest.raises(NotImplementedError, match="corr_interior_first"):
-        thead.head_forward(net, fm, ch, corr_interior_first=False)
-
-
 def test_interior_permutation_and_mask_match_jax():
     assert thead._interior_permutation() == jhead._interior_permutation()
     np.testing.assert_array_equal(thead.make_class_pool_mask(3).numpy(),

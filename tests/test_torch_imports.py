@@ -4,9 +4,9 @@
   (tools/*torch*.py, the mAP gate's twin among them) imports jax, jaxlib,
   optax, orbax or os2d_tpu; the HTTP app imports nothing outside the port
   and the standard library but fastapi.
-- The kernel wrappers (the fp32 gather, the bf16 hat resample and the
-  resample's backward) have no `except` that could turn a failed kernel into
-  a silent CPU fallback.
+- The kernel wrappers (the fp32 gather, the bf16 hat resample, the int8
+  hat resample and the resample's backward) have no `except` that could turn
+  a failed kernel into a silent CPU fallback; every CUDA source has one.
 - Os2dModel targets CUDA unless told otherwise, and raises without it.
 """
 
@@ -55,6 +55,19 @@ def test_hat_resample_wrapper_has_no_except():
 
 def test_resample_backward_wrapper_has_no_except():
     assert not _except_handlers("resample_grad.py")
+
+
+def test_int8_resample_wrapper_has_no_except():
+    assert not _except_handlers("int8_resample.py")
+
+
+def test_csrc_sources_have_wrappers():
+    """Every CUDA source of the port has a CudaKernel that builds it."""
+    from os2d_torch.ops import hat_resample, int8_resample, resample, resample_grad
+
+    sources = {k.source for k in (resample.KERNEL, hat_resample.KERNEL, int8_resample.KERNEL,
+                                  resample_grad.KERNEL)}
+    assert sources == {p.name for p in (ROOT / "os2d_torch" / "csrc").glob("*.cu")}
 
 
 def test_port_modules_import():

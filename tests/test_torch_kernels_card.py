@@ -15,6 +15,13 @@ columns of each sample with the plain version's roundings, so the two agree
 to the bit as well; it is held to rtol 1e-5, atol 1e-5, and to within 4e-3
 (the `"default"` prescreen margin) of the exact gather.
 
+int8 kernel (`csrc/int8_hat_resample.cu`): quantizes each corner as it
+reads it and sums the two non-zero rows and columns of each sample with the
+plain version's roundings, so the two agree to the bit (asserted beside
+rtol 1e-5, atol 1e-6), on the forward cases, half-way hat weights and
+B*C above 65535; the int8 head on the card equals the CPU's, and with a
+graph recorded it runs the hat kernel instead.
+
 Backward (`csrc/resample_backward.cu`: a memset, a scatter kernel and a
 transpose kernel behind one entry point): computes dpx and dpy with the
 plain version's roundings in its order, so those agree to the bit (asserted
@@ -39,9 +46,10 @@ cell): all of a plane's adds land on four cells.
 import pytest
 import torch
 
-from os2d_torch.ops import hat_resample, resample, resample_grad
+from os2d_torch.ops import hat_resample, int8_resample, resample, resample_grad
 from os2d_torch.ops.sampling import (
     hat_resample_reference,
+    int8_hat_resample_reference,
     resample_backward_reference,
     resample_correlation_from_pxpy_reference,
 )
@@ -49,6 +57,7 @@ from os2d_torch.ops.sampling import (
 RTOL, ATOL = 1e-5, 1e-6
 HAT_RTOL, HAT_ATOL = 1e-5, 1e-5
 DEFAULT_TIER_MARGIN = 4e-3
+INT8_HEAD_STEPS = 4
 pytestmark = pytest.mark.cuda
 
 
@@ -152,6 +161,56 @@ def test_kernels_take_more_than_65535_planes(cuda_gen):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, hat_resample_reference(corr, px, py, mask_t),
                                rtol=HAT_RTOL, atol=HAT_ATOL)
+
+
+@pytest.mark.parametrize("shape,kind", CASES + [((2, 3, 19, 23), "half"),
+                                         ((2, 32800, 3, 2), "uniform")])
+def test_int8_kernel_matches_plain(shape, kind, cuda_gen):
+    corr, px, py, mask_t = _inputs(*shape, cuda_gen, "uniform" if kind == "half" else kind)
+    if kind == "half":  # half-way hat weights: 127 * 0.5 rounds half to even
+        px, py = (torch.floor(px) + 0.5).clamp(max=shape[3] - 1), torch.floor(py) + 0.5
+        px, py = px.contiguous(), py.clamp(max=shape[2] - 1).contiguous()
+    before = int8_resample.KERNEL.launches
+    got = int8_resample.resample_correlation_int8(corr[..., :121], px, py, mask_t)
+    torch.cuda.synchronize()
+    want = int8_hat_resample_reference(corr[..., :121], px, py, mask_t)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, want)
+    assert int8_resample.KERNEL.launches == before + 1
+
+
+def test_int8_head_on_the_card_matches_the_cpu(cuda_gen):
+    """The head at "int8" on the card against the CPU; with a graph
+    recorded the hat kernel runs. The kernel itself is held to the bit
+    above: here the TransformNet's convolutions sum in another order on the
+    two devices, theta and px/py differ in their last bits, and a hat weight
+    or a corr value then rounds to the neighbouring 1/127 step now and then,
+    which moves a score by at most 1/127 * the largest mask value (1/121):
+    cls is held within INT8_HEAD_STEPS such steps."""
+    from os2d_torch.models import TransformNet
+    from os2d_torch.models import head as thead
+
+    fm = torch.randn(2, 9, 11, 64, generator=cuda_gen, device="cuda")
+    maps = torch.randn(3, 15, 15, 64, generator=cuda_gen, device="cuda")
+    net = TransformNet(6, device="cuda")
+    net.reset_parameters(torch.Generator(device="cuda").manual_seed(1))
+    with torch.no_grad():
+        net.linear.weight.normal_(0, 0.02, generator=cuda_gen)
+        before = int8_resample.KERNEL.launches
+        got = thead.head_forward(net, fm, thead.build_class_head(maps), resample_precision="int8")
+        torch.cuda.synchronize()
+        assert int8_resample.KERNEL.launches == before + 1
+        cpu_net = TransformNet(6, device="cpu")
+        cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+        want = thead.head_forward(cpu_net, fm.cpu(), thead.build_class_head(maps.cpu()),
+                                  resample_precision="int8")
+    torch.testing.assert_close(got["cls"].cpu(), want["cls"], rtol=0,
+                               atol=INT8_HEAD_STEPS / 127 / 121)
+    net.requires_grad_(True)
+    before = (int8_resample.KERNEL.launches, hat_resample.KERNEL.launches)
+    thead.head_forward(net, fm, thead.build_class_head(maps), resample_precision="int8")
+    assert (int8_resample.KERNEL.launches, hat_resample.KERNEL.launches) == (
+        before[0], before[1] + 1)
 
 
 BACKWARD_KINDS = KINDS + ["identity", "collapsed"]

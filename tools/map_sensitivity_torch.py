@@ -9,9 +9,11 @@ mAP@0.50, dmAP against "fp32_high", the matched detections' score deltas
 (mean, max), the match IoU and the unmatched count. A mode is mAP-safe when
 dmAP is 0 and the score deltas stay well below the score scale (~1).
 
-Configs: the JAX tool's fp32_high, fp32_default and bf16_fold_default, plus
-fp32_fold_default and bf16_default (unfolded). The JAX tool's
-fp32_high_int8bank and fp32_default_noperm are printed as not ported.
+Configs: the JAX tool's five, fp32_high, fp32_default, bf16_fold_default,
+fp32_high_int8bank (the int8 class bank, cfg.tpu.quantize_class_feats) and
+fp32_default_noperm (the natural channel order and the grid path,
+corr_interior_first=False), plus the port's fp32_fold_default and
+bf16_default (unfolded).
 
     python3 tools/map_sensitivity_torch.py                 # one card
     python3 tools/map_sensitivity_torch.py --device cpu --train-steps 2 \\
@@ -39,19 +41,19 @@ PATCH = 240
 NUM_CLASSES = 8
 NUM_IMAGES = 6
 
+# the five configs of tools/map_sensitivity.py, then the port's two
 CONFIGS = {
     "fp32_high": dict(compute_dtype="float32", resample_precision="high"),
     "fp32_default": dict(compute_dtype="float32", resample_precision="default"),
     "bf16_fold_default": dict(compute_dtype="bfloat16", resample_precision="default",
                               fold_bn=True),
+    "fp32_high_int8bank": dict(compute_dtype="float32", resample_precision="high",
+                               quantize=True),
+    "fp32_default_noperm": dict(compute_dtype="float32", resample_precision="default",
+                                corr_interior_first=False),
     "fp32_fold_default": dict(compute_dtype="float32", resample_precision="default",
                               fold_bn=True),
     "bf16_default": dict(compute_dtype="bfloat16", resample_precision="default"),
-}
-# configs of tools/map_sensitivity.py whose option the port does not have yet
-NOT_PORTED = {
-    "fp32_high_int8bank": "int8 class banks (cfg.tpu.quantize_class_feats)",
-    "fp32_default_noperm": "corr_interior_first=False",
 }
 
 
@@ -171,10 +173,12 @@ def evaluate_configs(dataset, state, args):
         cfg.eval.mAP_iou_thresholds = [0.5]
         cfg.tpu.eval_class_chunk = NUM_CLASSES
         cfg.tpu.fold_bn = bool(nc.get("fold_bn", False))
+        cfg.tpu.quantize_class_feats = bool(nc.get("quantize", False))
         save_dir = os.path.join(args.root, f"dets_{name}")
         cfg.visualization.eval.path_to_save_detections = save_dir
         model = Os2dModel(Os2dConfig(compute_dtype=nc["compute_dtype"],
-                                     resample_precision=nc["resample_precision"]),
+                                     resample_precision=nc["resample_precision"],
+                                     corr_interior_first=nc.get("corr_interior_first", True)),
                           device=args.device)
         model.load_state_dict(state)
         t0 = time.time()
@@ -243,8 +247,6 @@ def main(argv=None):
         print(f"{name}: dmAP={r['dmAP']:+.4f} score_delta mean={r['score_delta_mean']:.2e} "
               f"max={r['score_delta_max']:.2e} match_iou_mean={r['match_iou_mean']:.4f} "
               f"unmatched={r['unmatched']}/{r['reference_detections']}")
-    for name, why in NOT_PORTED.items():
-        print(f"{name}: not ported ({why})")
     device = args.device
     if device.startswith("cuda"):
         device = subprocess.run(
@@ -252,7 +254,7 @@ def main(argv=None):
             capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(json.dumps({"device": device, "train_steps": args.train_steps,
                       "fp32_high": {"mAP@0.50": results["fp32_high"]["mAP@0.50"]},
-                      **rows, "not_ported": sorted(NOT_PORTED),
+                      **rows,
                       "eval_seconds": {k: v["seconds"] for k, v in results.items()}}))
     return rows
 
