@@ -212,6 +212,40 @@ Then the model options, each with the main path's weights (phases 23-26):
               card against CPU within R101_RTOL_TO_MAX of the largest
               feature; the bench dispatch and the pyramid + backbone alone,
               GN and BN in turns.
+Then evaluate()'s host side and the figures (phases 27-29):
+ 27. eval_prefetch  evaluate() over HOST_SCENES planted 1280x960 scenes
+              written as files (batch 2, EVAL_PYRAMID, no TTA, threshold
+              0.5: the prescreen runs) with the producer thread
+              (cfg.tpu.eval_prefetch_depth 1, pinned uploads on a copy
+              stream) and with the serial loop (depth 0) in turns
+              (HOST_ROUNDS rounds): their wall times and, round by round,
+              the serial wall less the prefetched one (the time the
+              producer hides); detections bit-equal between the loops and
+              mAP@0.50 1.0 in both. The card against the CPU on the first
+              HOST_CPU_SCENES scenes: mAP@0.50 1.0 on both, the same
+              detection on each planted patch (the best of its class
+              overlapping it: scores HOST_SCORE_ATOL, boxes HOST_BOX_ATOL
+              px) and the same number of detections per image. Then a
+              serial loop timed stage by stage (StageTimer, synchronized):
+              host prep (the raw iterator and the stack), upload and
+              dispatch per batch.
+ 28. class_chunks  the bench protocol at CHUNK_CLASSES classes (one
+              template's features with noise, tools/bench_classes_torch.py),
+              B=1, eval_class_chunk CHUNK_SIZE: per-level chunks against
+              uniform ones in turns (CHUNK_ROUNDS rounds), s/image and peak
+              MiB of each; the two outputs torch.equal; the hat kernel once
+              per level and chunk of each mode; one "highest" dispatch with
+              per-level chunks (the gather once per level and chunk).
+ 29. visualization  evaluate() over phase 4's planted files with
+              cfg.visualization.eval's show_detections, show_gt_boxes and
+              show_class_heatmaps (the chunked per-level path), and
+              trainval_loop at phase 10's recipe with no step and
+              cfg.visualization.train's show_gt_boxes_dataloader and
+              show_target_remapping (margin_pos 1.0), on the card and the
+              CPU from the same weights: the same figures, the first of each
+              kind written as a file; heatmaps and the remapping's score,
+              IoU and loss maps within VIZ_ATOL, targets equal, the loss
+              gradients within VIZ_GRAD_RTOL / VIZ_GRAD_ATOL.
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
 entry point that enqueues a memset, a scatter kernel and a transpose
 kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
@@ -223,12 +257,15 @@ uniform, near-identity, exact-identity and collapsed inputs.
 Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-19
 (each dispatch of phase 14) and read just after it, around each step of
 phase 17, each call of phase 21, in each rank of phase 22 its steps and
-each eval, and around each card run and each set of timed turns of phases
-23-26; a phase whose kernel was not launched fails. The kernels line counts
-the launches of the timed dispatches of phases 6 (hat), 7 (gather) and 23
-(int8) and of phase 10's loop (backward), with those of phase 21 added to
-the hat and the gather and those of phase 22's ranks to all three. Then one
-{"kernels": [...]} line, the nvidia-smi line, and the last line
+each eval, around each card run and each set of timed turns of phases
+23-26, around phase 27's turns, each counted dispatch of phase 28 and phase
+29's card runs; a phase whose kernel was not launched fails (phases 27-29:
+neither the hat nor the gather kernel). The kernels line counts the
+launches of the timed dispatches of phases 6 (hat), 7 (gather) and 23
+(int8) and of phase 10's loop (backward), with those of phases 21 and 27-29
+added to the hat and the gather and those of phase 22's ranks to all three.
+Then one {"kernels": [...]} line, the whole run's wall time
+({"phase": "wall"}), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
 exits 1.
 """
@@ -1692,7 +1729,431 @@ def model_options(counts, ctx):
     return int8_counts["int8_hat_resample_correlation"]
 
 
+HOST_SCENES = 48  # planted 1280x960 scenes of phase 27 (24 batches of 2)
+HOST_CPU_SCENES = 4  # of them, the ones also evaluated on the CPU
+HOST_ROUNDS = 4  # rounds of the two loops in turns (phase 27)
+# phase 27, card against CPU: the hit on each planted patch (readings of the
+# chip runs: scores within 1.2e-7, boxes equal)
+HOST_SCORE_ATOL, HOST_BOX_ATOL = 1e-4, 1.0
+CHUNK_CLASSES, CHUNK_SIZE, CHUNK_ROUNDS = 256, 32, 2  # phase 28
+VIZ_ATOL = 1e-4  # phase 29: score, IoU and loss maps, card against CPU
+VIZ_GRAD_RTOL, VIZ_GRAD_ATOL = 1e-4, 1e-6  # phase 29: the loss gradients
+
+
+def write_host_dataset(root):
+    """HOST_SCENES noise scenes of IMG_W x IMG_H, each with the two class
+    patches of planted_scenes() at anchor-aligned positions (x0 = 16k - 112),
+    as JPEG files and a CSV-schema dataframe."""
+    import numpy as np
+    import pandas as pd
+    from PIL import Image
+
+    _, patches = planted_scenes()
+    rng = np.random.RandomState(2)
+    os.makedirs(os.path.join(root, "classes", "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "src"), exist_ok=True)
+    for cid, patch in enumerate(patches):
+        Image.fromarray(patch).save(os.path.join(root, "classes", "images", f"class{cid}.jpg"),
+                                    quality=95)
+    rows = []
+    for image_id in range(HOST_SCENES):
+        scene = rng.randint(0, 60, (IMG_H, IMG_W, 3), np.uint8)
+        k = image_id % 8
+        for cid, (x0, y0) in enumerate(((48 + 64 * k, 112), (688, 432 + 32 * k))):
+            scene[y0:y0 + PATCH, x0:x0 + PATCH] = patches[cid]
+            rows.append(dict(imageid=image_id, imagefilename=f"img{image_id}.jpg", classid=cid,
+                             classfilename=f"class{cid}.jpg", gtbboxid=len(rows), difficult=0,
+                             lx=x0 / IMG_W, ty=y0 / IMG_H, rx=(x0 + PATCH) / IMG_W,
+                             by=(y0 + PATCH) / IMG_H))
+        Image.fromarray(scene).save(os.path.join(root, "src", f"img{image_id}.jpg"), quality=95)
+    return pd.DataFrame(rows)
+
+
+def planted_hits_agree(got, want, score_atol=HOST_SCORE_ATOL, box_atol=HOST_BOX_ATOL):
+    """Two detection files of evaluate() (per image: boxes, scores, labels
+    and the GT): for every GT box, the best-scoring detection of its class
+    that overlaps it (IoU > 0.5) in each, within score_atol and box_atol px
+    of each other. Away from the planted patches random weights score
+    neighbouring anchors within ~1e-5, so which of them NMS keeps follows
+    the last bits and is not compared. Returns (agree, the largest score and
+    box differences of the hits)."""
+    import numpy as np
+
+    def iou(boxes, box):
+        lt = np.maximum(boxes[:, :2], box[:2])
+        rb = np.minimum(boxes[:, 2:], box[2:])
+        inter = np.clip(rb - lt, 0, None).prod(-1)
+        area = lambda b: (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])  # noqa: E731
+        return inter / (area(boxes) + area(box) - inter)
+
+    def hit(dets, i, gt_box, label):
+        same = dets["labels"][i] == label
+        boxes, scores = dets["boxes_xyxy"][i][same], dets["scores"][i][same]
+        on = iou(boxes, gt_box) > 0.5 if len(boxes) else np.zeros(0, bool)
+        if not on.any():
+            return None
+        k = int(np.argmax(np.where(on, scores, -np.inf)))
+        return scores[k], boxes[k]
+
+    worst = [0.0, 0.0]
+    for i, (gt_boxes, gt_labels) in enumerate(zip(want["gt_boxes_xyxy"], want["gt_labels"])):
+        for gt_box, label in zip(gt_boxes, gt_labels):
+            a, b = hit(got, i, gt_box, label), hit(want, i, gt_box, label)
+            if a is None or b is None:
+                return False, [float("inf")] * 2
+            worst = [max(worst[0], abs(float(a[0] - b[0]))),
+                     max(worst[1], float(np.abs(a[1] - b[1]).max()))]
+    return worst[0] <= score_atol and worst[1] <= box_atol, worst
+
+
+class FigureRecorder:
+    """Stands in for os2d_torch.utils.visualization while installed (a
+    module of the same name in sys.modules, which the engine imports when it
+    draws): keeps each call's arrays by (function, file name) and, with
+    `draw`, writes the first figure of each function, with the real module
+    where matplotlib is installed and else as an .npz of the figure's
+    arrays beside the figure's name."""
+
+    NAME = "os2d_torch.utils.visualization"
+    FUNCTIONS = ("show_detections", "show_gt_boxes", "show_class_heatmap",
+                 "show_target_remapping")
+
+    def __init__(self, draw):
+        import importlib.util
+
+        self.draw, self.calls = draw, {}
+        self.matplotlib = importlib.util.find_spec("matplotlib") is not None
+
+    def __enter__(self):
+        import importlib
+
+        self.real = importlib.import_module(self.NAME) if self.matplotlib else None
+        self.saved = sys.modules.get(self.NAME)
+        stub = types.ModuleType(self.NAME)
+        for name in self.FUNCTIONS:
+            setattr(stub, name, self._recorder(name))
+        sys.modules[self.NAME] = stub
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            del sys.modules[self.NAME]
+        else:
+            sys.modules[self.NAME] = self.saved
+
+    def _recorder(self, name):
+        import numpy as np
+
+        def record(*args, **kwargs):
+            path = kwargs["save_path"]
+            first = not any(n == name for n, _ in self.calls)
+            self.calls[(name, os.path.basename(path))] = (list(args), dict(kwargs))
+            if self.draw and first:
+                if self.real is not None:
+                    return getattr(self.real, name)(*args, **kwargs)
+                arrays = {f"arg{i}": np.asarray(a) for i, a in enumerate(args)
+                          if not isinstance(a, list)}
+                arrays.update({k: np.asarray(v) for k, v in kwargs.items()
+                               if v is not None and k != "save_path"})
+                np.savez(path + ".npz", **arrays)
+            return path
+        return record
+
+
+def host_side(counts, ctx):
+    """Phases 27 (eval_prefetch), 28 (class_chunks) and 29 (visualization):
+    evaluate()'s producer thread against its serial loop, per-level class
+    chunks against uniform ones at the bench protocol, and the figures of
+    the visualisation flags, card against CPU. `counts` and `ctx` as for
+    model_options (ctx also holds the planted train set and its recipe).
+    Returns {kernel: launches} of the three phases' counted runs."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from os2d_torch.data.dataloader import (
+        DataloaderOneShotDetection,
+        build_train_dataloader_from_config,
+    )
+    from os2d_torch.data.dataset import DatasetOneShotDetection
+    from os2d_torch.engine import evaluate as evaluate_module
+    from os2d_torch.engine.evaluate import Evaluator, evaluate, level_class_chunks
+    from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.engine.train import trainable_parameters, trainval_loop
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.ops.cuda import BUILD_DIR
+    from os2d_torch.utils.profiling import StageTimer
+    from os2d_torch.utils.upload import uploader_for
+    from tools.bench_classes_torch import chunk_modes_in_turns, synthetic_bank, timed_detect
+
+    dev = ctx.model.device
+    total = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def require_some(phase, launches):
+        if not (launches["hat_resample_correlation"] or launches["resample_correlation"]):
+            raise SystemExit(f"{phase}: neither the hat nor the gather kernel launched")
+
+    def cpu_twin():
+        m = Os2dModel(Os2dConfig(), device="cpu")
+        m.load_state_dict({k: v.cpu() for k, v in ctx.base_state.items()})
+        return m
+
+    # ---- 27. eval_prefetch: the producer thread against the serial loop ----
+    t_phase = time.perf_counter()
+    cfg = ctx.eval_cfg.clone()
+    cfg.eval.class_image_augmentation = ""
+    cfg.eval.batch_size = 2
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        df = write_host_dataset(root)
+
+        def host_loader(frame, name):
+            dataset = DatasetOneShotDetection(
+                frame, gt_path=os.path.join(root, "classes", "images"),
+                image_path=os.path.join(root, "src"), name=name, image_size=IMG_W,
+                eval_scale=IMG_W, cache_images=True)
+            return DataloaderOneShotDetection(dataset, batch_size=2,
+                                              pyramid_scales_eval=EVAL_PYRAMID)
+
+        loader = host_loader(df, "planted-host")
+        small = host_loader(df[df.imageid < HOST_CPU_SCENES], "planted-host-small")
+
+        def run(model, depth, tag, on=loader):
+            run_cfg = cfg.clone()
+            run_cfg.tpu.eval_prefetch_depth = depth
+            run_cfg.visualization.eval.path_to_save_detections = os.path.join(root, tag)
+            t0 = time.perf_counter()
+            res = evaluate(on, model, run_cfg)
+            sync()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(root, tag, f"{on.dataset.name}_detections.pkl"), "rb") as f:
+                dets = pickle.load(f)
+            return res, dets, wall
+
+        evaluate(loader, ctx.model, cfg)  # warm-up; reads the files into the cache
+        sync()
+        counts.reset()
+        walls = {"prefetch_depth1": [], "serial": []}
+        outs = {}
+        for i_round in range(HOST_ROUNDS):
+            order = [("prefetch_depth1", 1), ("serial", 0)]
+            for name, depth in (order if i_round % 2 == 0 else order[::-1]):
+                res, dets, wall = run(ctx.model, depth, f"{name}{i_round}")
+                walls[name].append(wall)
+                outs[name] = (res, dets)
+        prefetch_launches = counts.read()
+        small_res, small_dets, _ = run(ctx.model, 1, "small", on=small)
+        cpu_res, cpu_dets, cpu_wall = run(cpu_twin(), 1, "cpu", on=small)
+
+        # the host work that the producer moves off the loop, and the
+        # dispatches, timed stage by stage in a serial loop
+        timer = StageTimer()
+        ev = Evaluator(ctx.model, cfg)
+        class_images, _, _ = loader.get_all_class_images()
+        head, _ = ev.build_class_heads(class_images)
+        uploader = uploader_for(ctx.model.device)
+        items = loader.make_raw_iterator_for_all_images(2)
+        n_batches = 0
+        while True:
+            with timer.stage("host_prep"):
+                item = next(items, None)
+                if item is None:
+                    break
+                stacked = np.stack(item[1] + [item[1][-1]] * (2 - len(item[1])))
+            with timer.stage("upload"):
+                images = uploader.upload(stacked)
+            with timer.stage("dispatch"):
+                evaluate_module.unpack_detections(
+                    ev.detect_images(images, head, item[2], item[3][0], loader.img_normalization))
+            n_batches += 1
+    stages = {k: v["total_s"] / max(n_batches, 1) * 1e3 for k, v in timer.summary().items()}
+    # round by round, the serial wall less the prefetched one
+    hidden = [s_ - p for s_, p in zip(walls["serial"], walls["prefetch_depth1"])]
+    prefetched, serial = outs["prefetch_depth1"], outs["serial"]
+    same_loops = all(np.array_equal(a, b) for key in ("boxes_xyxy", "scores", "labels")
+                     for a, b in zip(prefetched[1][key], serial[1][key]))
+    cpu_agree, cpu_diff = planted_hits_agree(small_dets, cpu_dets)
+    emit({"phase": "eval_prefetch", "images": f"{HOST_SCENES}x{IMG_W}x{IMG_H} files",
+          "batch": 2, "batches": n_batches, "levels": EVAL_PYRAMID, "rounds": HOST_ROUNDS,
+          "order": "prefetch, serial, serial, prefetch, ...",
+          "wall_s": walls,
+          "median_wall_s": {k: float(np.median(v)) for k, v in walls.items()},
+          "hidden_s_per_round": hidden, "median_hidden_s": float(np.median(hidden)),
+          "median_hidden_ms_per_batch": float(np.median(hidden)) / n_batches * 1e3,
+          "serial_stage_ms_per_batch": stages,
+          "mAP@0.50": prefetched[0]["mAP@0.50"], "serial_mAP@0.50": serial[0]["mAP@0.50"],
+          "cpu_images": HOST_CPU_SCENES, "card_small_mAP@0.50": small_res["mAP@0.50"],
+          "cpu_mAP@0.50": cpu_res["mAP@0.50"], "cpu_wall_s": cpu_wall,
+          "loops_bit_equal": same_loops, "card_matches_cpu": cpu_agree,
+          "card_cpu_hits_max_score_and_box_diff": cpu_diff,
+          "score_atol": HOST_SCORE_ATOL, "box_atol_px": HOST_BOX_ATOL,
+          "card_cpu_detections": [[len(a), len(b)] for a, b in zip(small_dets["scores"],
+                                                                    cpu_dets["scores"])],
+          "launches": prefetch_launches, "seconds": time.perf_counter() - t_phase})
+    maps = (prefetched[0]["mAP@0.50"], serial[0]["mAP@0.50"], small_res["mAP@0.50"],
+            cpu_res["mAP@0.50"])
+    if not all(m == 1.0 for m in maps):
+        raise SystemExit(f"eval_prefetch: mAP@0.50 is not 1.0 in every loop and on the CPU: {maps}")
+    if not same_loops:
+        raise SystemExit("eval_prefetch: the producer's detections differ from the serial loop's")
+    counts_equal = all(len(a) == len(b) for a, b in zip(small_dets["scores"],
+                                                          cpu_dets["scores"]))
+    if not (cpu_agree and counts_equal):
+        raise SystemExit("eval_prefetch: the card's detections differ from the CPU's")
+    require_some("eval_prefetch", prefetch_launches)
+    add(prefetch_launches)
+
+    # ---- 28. class_chunks: per-level against uniform chunks at 256 classes ----
+    t_phase = time.perf_counter()
+    chunk_cfg = ctx.cfg.clone()
+    chunk_cfg.tpu.eval_class_chunk = CHUNK_SIZE
+    image = torch.as_tensor(ctx.batches[0][0], device=dev)
+    bank = synthetic_bank(ctx.model, CHUNK_CLASSES)
+    stats, outs = chunk_modes_in_turns(ctx.model, chunk_cfg, bank, image, CHUNK_ROUNDS)
+    chunk_launches = {}
+    for per_level in (False, True):
+        mode_cfg = chunk_cfg.clone()
+        mode_cfg.tpu.eval_class_chunk_per_level = per_level
+        counts.reset()
+        timed_detect(Evaluator(ctx.model, mode_cfg), image, bank)
+        chunk_launches["per_level" if per_level else "uniform"] = counts.read()
+    highest = Os2dModel(Os2dConfig(resample_precision="highest"), device=dev)
+    highest.load_state_dict(ctx.base_state)
+    counts.reset()
+    highest_s, highest_out = timed_detect(Evaluator(highest, chunk_cfg), image, bank)
+    chunk_launches["highest_per_level"] = counts.read()
+    del highest
+    level_chunks = level_class_chunks(ctx.sizes, CHUNK_SIZE, CHUNK_CLASSES)
+    want = {"uniform": len(ctx.sizes) * -(-CHUNK_CLASSES // CHUNK_SIZE),
+            "per_level": sum(-(-CHUNK_CLASSES // c) for c in level_chunks)}
+    equal = bool(torch.equal(outs["per_level"], outs["uniform"]))
+    emit({"phase": "class_chunks", "classes": CHUNK_CLASSES, "chunk": CHUNK_SIZE,
+          "images": f"1x{IMG_W}x{IMG_H}", "levels": len(ctx.sizes),
+          "level_chunks": level_chunks, "rounds": CHUNK_ROUNDS,
+          "order": "uniform, per_level, per_level, uniform, ...",
+          "s_per_image": {k: v["times"] for k, v in stats.items()},
+          "median_s_per_image": {k: float(np.median(v["times"])) for k, v in stats.items()},
+          "peak_mib": {k: v["peak_mib"] for k, v in stats.items()},
+          "outputs_equal": equal, "launches": chunk_launches,
+          "expected_hat_launches": want, "highest_s": highest_s,
+          "seconds": time.perf_counter() - t_phase})
+    if not equal:
+        raise SystemExit("class_chunks: per-level chunks' detections are not torch.equal to "
+                         "uniform chunks'")
+    d = evaluate_module.unpack_detections(highest_out)
+    if not (np.isfinite(d["scores"][d["valid"]]).all() and d["valid"].any()):
+        raise SystemExit("class_chunks: no or non-finite detections at 'highest'")
+    for mode, n in want.items():
+        counts.require("class_chunks", chunk_launches[mode], "hat_resample_correlation", n)
+    counts.require("class_chunks", chunk_launches["highest_per_level"], "resample_correlation",
+                   want["per_level"])
+    for launches in chunk_launches.values():
+        add(launches)
+    del bank, outs
+
+    # ---- 29. visualization: the eval and train flags, card against CPU ----
+    t_phase = time.perf_counter()
+    records = {}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        eval_loader = planted_eval_loader(os.path.join(root, "data"))
+        viz_launches = {}
+        for on in (dev.type, "cpu"):
+            model = ctx.model if on == dev.type else cpu_twin()
+            viz_cfg = cfg.clone()
+            viz_cfg.eval.batch_size = 1
+            viz_cfg.output.path = os.path.join(root, on)
+            flags = viz_cfg.visualization.eval
+            flags.show_detections = flags.show_gt_boxes = flags.show_class_heatmaps = True
+            train_cfg = ctx.train_cfg.clone()
+            train_cfg.train.optim.max_iter = 0
+            train_cfg.output.path = os.path.join(root, on)
+            train_cfg.visualization.train.show_gt_boxes_dataloader = True
+            train_cfg.visualization.train.show_target_remapping = True
+            train_model = Os2dModel(Os2dConfig(), device=model.device)
+            train_model.load_state_dict({k: v.to(model.device)
+                                         for k, v in ctx.base_state.items()})
+            train_loader, _ = build_train_dataloader_from_config(train_cfg, ctx.train_set,
+                                                                 seed=0)
+            with FigureRecorder(draw=on == dev.type) as rec:
+                if on == dev.type:
+                    counts.reset()
+                res = evaluate(eval_loader, model, viz_cfg)
+                trainval_loop(train_loader, train_model, train_cfg, ctx.first_objective,
+                              create_optimizer(train_cfg.train.optim,
+                                               trainable_parameters(train_model,
+                                                                    train_cfg.train)))
+                if on == dev.type:
+                    sync()
+                    viz_launches = counts.read()
+            records[on] = (res, rec.calls)
+            del train_model
+        files = sorted(os.path.relpath(os.path.join(d, f), os.path.join(root, dev.type))
+                       for d, _, fs in os.walk(os.path.join(root, dev.type)) for f in fs)
+    card_calls, cpu_calls = records[dev.type][1], records["cpu"][1]
+    diffs = {}
+    for key, (args, kwargs) in card_calls.items():
+        c_args, c_kwargs = cpu_calls[key]
+        if key[0] == "show_class_heatmap":
+            diffs.setdefault("heatmap", []).append(float(np.abs(args[1] - c_args[1]).max()))
+        elif key[0] == "show_target_remapping":
+            for i, name in ((1, "remap_scores"),):
+                diffs.setdefault(name, []).append(float(np.abs(args[i] - c_args[i]).max()))
+            diffs.setdefault("remap_targets_differing", []).append(
+                int((args[2] != c_args[2]).sum()))
+            diffs.setdefault("remap_remapped_differing", []).append(
+                int((args[3] != c_args[3]).sum()))
+            for name in ("ious_anchor", "ious_corrected", "loss_per_anchor"):
+                diffs.setdefault(name, []).append(
+                    float(np.abs(kwargs[name] - c_kwargs[name]).max()))
+            for name in ("grad_scores", "grad_scores_detached"):
+                diff, ref = np.abs(kwargs[name] - c_kwargs[name]), np.abs(c_kwargs[name])
+                excess = diff - VIZ_GRAD_RTOL * ref
+                diffs.setdefault(name + "_excess_over_rtol", []).append(float(excess.max()))
+                diffs.setdefault(name + "_max_abs", []).append(float(diff.max()))
+                # relative where rtol rules: |cpu| above atol / rtol
+                big = ref > VIZ_GRAD_ATOL / VIZ_GRAD_RTOL
+                diffs.setdefault(name + "_max_rel", []).append(
+                    float((diff[big] / ref[big]).max()) if big.any() else 0.0)
+    worst = {k: max(v) for k, v in diffs.items()}
+    n_remap = sum(k[0] == "show_target_remapping" for k in card_calls)
+    emit({"phase": "visualization", "figures": sorted(card_calls),
+          "files_written": files, "matplotlib": rec.matplotlib, "mAP@0.50": records[dev.type][0]["mAP@0.50"],
+          "cpu_mAP@0.50": records["cpu"][0]["mAP@0.50"], "max_diff": worst,
+          "atol": VIZ_ATOL, "grad_rtol": VIZ_GRAD_RTOL, "grad_atol": VIZ_GRAD_ATOL,
+          "launches": viz_launches, "seconds": time.perf_counter() - t_phase})
+    if set(card_calls) != set(cpu_calls):
+        raise SystemExit("visualization: the card and the CPU drew different figures")
+    kinds = {k[0] for k in card_calls}
+    if kinds != set(FigureRecorder.FUNCTIONS) or not n_remap:
+        raise SystemExit(f"visualization: figures of {sorted(kinds)} only")
+    for name in kinds:  # the first figure of each kind was written
+        first = next(k[1] for k in card_calls if k[0] == name)
+        if not any(os.path.basename(f) in (first, first + ".npz") for f in files):
+            raise SystemExit(f"visualization: {first} was not written")
+    for name in ("heatmap", "remap_scores", "ious_anchor", "ious_corrected", "loss_per_anchor"):
+        if not worst[name] <= VIZ_ATOL:
+            raise SystemExit(f"visualization: {name} differs by {worst[name]} card vs CPU")
+    for name in ("grad_scores", "grad_scores_detached"):
+        if not worst[name + "_excess_over_rtol"] <= VIZ_GRAD_ATOL:
+            raise SystemExit(f"visualization: {name} beyond rtol {VIZ_GRAD_RTOL}, atol "
+                             f"{VIZ_GRAD_ATOL}, card vs CPU")
+    if worst["remap_targets_differing"]:
+        raise SystemExit("visualization: the encoded targets differ card vs CPU")
+    require_some("visualization", viz_launches)
+    add(viz_launches)
+    return total
+
+
 def main(argv):
+    t_run = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2893,6 +3354,13 @@ def main(argv):
             planted_class_images=planted_class_images, train_batch=train_batch,
             train_cfg=train_cfg, first_objective=first_objective))
 
+    # ---- 27.-29. evaluate()'s host side, per-level class chunks, the figures ----
+    host_launches = host_side(
+        types.SimpleNamespace(reset=reset_counts, read=read_counts, require=require_launches),
+        types.SimpleNamespace(model=model, base_state=base_state, eval_cfg=eval_cfg, cfg=cfg,
+                              batches=batches, sizes=sizes, train_set=train_set,
+                              train_cfg=train_cfg, first_objective=first_objective))
+
     if "--profile" in argv:
         profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),
                     main_median)
@@ -2909,7 +3377,8 @@ def main(argv):
         "source": "os2d_torch/csrc/resample.cu",
         "replaces": "os2d_tpu/ops/pallas_resample.py:24",
         "launches": (highest_counts["resample_correlation"] + serve_counts["resample_correlation"]
-                     + dist_counts["resample_correlation"]),
+                     + dist_counts["resample_correlation"]
+                     + host_launches["resample_correlation"]),
         "max_abs_err": max(errs["resample_correlation"].values()),
         "ms": gather_ms,
         "plain_ms": gather_plain_ms,
@@ -2923,7 +3392,8 @@ def main(argv):
         "replaces": "os2d_tpu/ops/pallas_hat_resample.py:42",
         "launches": (main_counts["hat_resample_correlation"]
                      + serve_counts["hat_resample_correlation"]
-                     + dist_counts["hat_resample_correlation"]),
+                     + dist_counts["hat_resample_correlation"]
+                     + host_launches["hat_resample_correlation"]),
         "max_abs_err": max(errs["hat_resample_correlation"].values()),
         "ms": hat_ms,
         "plain_ms": hat_plain_ms,
@@ -2957,6 +3427,7 @@ def main(argv):
         "bound_by": bwd_bound_by,
         "library_ms": bwd_library_ms,
     }]})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_run})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

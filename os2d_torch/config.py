@@ -6,13 +6,16 @@ portable, implemented with a small self-contained node class (no yacs).
 A copy of `os2d_tpu/config.py` with the same keys and defaults, so that a
 config edit means the same thing to both packages. The additions grouped
 under `cfg.tpu` keep their names; the PyTorch port reads the ones on its
-eval path (`eval_class_chunk`, `eval_pre_top_k`, `eval_top_k`,
-`eval_class_prescreen`, `fold_bn`, `quantize_class_feats`,
-`device_side_pyramid`, `eval_shard_axis`), `corr_interior_first` and the
-model keys in `main.py`, refuses where they are read the options whose
-paths are not ported (`upload_pixel_format="yuv420"`, the visualisation
-flags, `checkpoint_backend="orbax"`) and ignores the rest (the model's
-numerics are its `Os2dConfig`'s, as in the JAX package).
+eval path (`eval_class_chunk`, `eval_class_chunk_per_level`,
+`eval_pre_top_k`, `eval_top_k`, `eval_class_prescreen`,
+`eval_prefetch_depth`, `fold_bn`,
+`quantize_class_feats`, `device_side_pyramid`, `eval_shard_axis`),
+`corr_interior_first` and the model keys in `main.py`, refuses where they
+are read the options whose paths are not ported
+(`upload_pixel_format="yuv420"`, `checkpoint_backend="orbax"`) and ignores
+the rest (the model's numerics are its `Os2dConfig`'s, as in the JAX
+package; `upload_streams` and `upload_serialize` shape a TPU upload and
+nothing on a card needs them, see `os2d_torch/utils/upload.py`).
 """
 
 from __future__ import annotations
@@ -267,9 +270,8 @@ def get_default_cfg() -> ConfigNode:
             ),
         ),
         # --- additions of the JAX package, same names and defaults; what
-        # each does on the TPU is documented in os2d_tpu/config.py. The port
-        # reads eval_class_chunk, eval_pre_top_k, eval_top_k and
-        # eval_class_prescreen (see the module docstring). ---
+        # each does on the TPU is documented in os2d_tpu/config.py. What the
+        # port reads is listed in the module docstring. ---
         tpu=_cn(
             compute_dtype="float32",
             resample_precision="default",

@@ -12,7 +12,7 @@ All functions take any leading batch dimensions before the label axis G.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -74,6 +74,7 @@ def decode_pyramid(
     pre_top_k: int = 1024,
     top_k: int = 256,
     nms_across_classes: bool = False,
+    corners_pyramid: Optional[Sequence[torch.Tensor]] = None,
 ):
     """Decode all pyramid levels and NMS per label row.
 
@@ -85,10 +86,12 @@ def decode_pyramid(
       top_k: detections kept per label row after NMS.
 
     Returns dict with boxes [..., G, K, 4] (original coords), scores
-    [..., G, K], valid [..., G, K]. With nms_across_classes a second NMS joins
-    all G rows of each batch entry (suppressed entries get valid=False).
+    [..., G, K], valid [..., G, K]; with corners_pyramid (per level [..., G,
+    8, A_l], the head's transformed grid corners) also corners [..., G, K, 8]
+    in original coordinates. With nms_across_classes a second NMS joins all G
+    rows of each batch entry (suppressed entries get valid=False).
     """
-    all_boxes, all_scores, all_valid = [], [], []
+    all_boxes, all_scores, all_valid, all_corners = [], [], [], []
     for lvl, img_size in enumerate(img_sizes):
         d_boxes = default_boxes_for_image_size(img_size, loc_pyramid[lvl].device)
         boxes, scores, valid = decode_single_level(
@@ -98,6 +101,10 @@ def decode_pyramid(
         all_boxes.append(boxes)
         all_scores.append(scores)
         all_valid.append(valid)
+        if corners_pyramid is not None:
+            sx, sy = inverse_scales[lvl]
+            corners = corners_pyramid[lvl].transpose(-1, -2)  # [..., G, A, 8]
+            all_corners.append(corners * corners.new_tensor([sx, sy] * 4))
 
     boxes = torch.cat(all_boxes, dim=-2)  # [..., G, A_tot, 4]
     scores = torch.cat(all_scores, dim=-1)
@@ -111,8 +118,15 @@ def decode_pyramid(
     top_boxes = torch.gather(boxes, -2, idx4)
     top_valid = torch.gather(valid, -1, top_idx)
 
-    nb, ns, nv, _ = nms_topk(top_boxes, top_scores, top_valid, nms_iou_threshold, top_k)
+    nb, ns, nv, nidx = nms_topk(top_boxes, top_scores, top_valid, nms_iou_threshold, top_k)
     out = {"boxes": nb, "scores": ns, "valid": nv}
+    if corners_pyramid is not None:
+        # slots past the candidates (top_k > k_pre) are invalid; JAX's
+        # gather clamps their index, so does this one
+        corners = torch.gather(torch.cat(all_corners, dim=-2), -2,
+                               top_idx[..., None].expand(top_idx.shape + (8,)))
+        nidx = nidx.clamp(max=k_pre - 1)
+        out["corners"] = torch.gather(corners, -2, nidx[..., None].expand(nidx.shape + (8,)))
 
     if nms_across_classes:
         g, k = nb.shape[-3], nb.shape[-2]

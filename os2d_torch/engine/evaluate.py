@@ -28,7 +28,13 @@
   each class chunk is dequantized when the head runs. `detect_images` and
   `score_pyramid` take a QuantizedClassHead (dequantized up front over a
   mesh); the prescreen does not apply to it.
-Not ported yet: the heatmaps and visualisation.
+- Without a mesh, `detect_images` runs larger class chunks on smaller
+  pyramid levels (cfg.tpu.eval_class_chunk_per_level, `level_class_chunks`):
+  eval_class_chunk bounds the correlation tensor at the largest level.
+- `evaluate` prepares and uploads batch i+1 on a producer thread while batch
+  i computes (cfg.tpu.eval_prefetch_depth batches ahead; 0 runs the serial
+  loop), through pinned host memory on a card (utils/upload.py), and draws
+  the figures of cfg.visualization.eval (utils/visualization.py).
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ from __future__ import annotations
 import logging
 import os
 import pickle
+import queue
+import threading
 import time
 from typing import Dict, List
 
@@ -54,7 +62,8 @@ from ..models.os2d import fold_inference_params
 from ..ops.geometry import l2_normalize_channels
 from ..ops.sampling import resize_bilinear_antialias
 from ..parallel.mesh import all_gather_cat, all_gather_chunked, local_rows, primary_host
-from ..structures.feature_map import FeatureMapSize
+from ..structures.feature_map import FeatureMapSize, feature_map_size_for_image
+from ..utils.upload import uploader_for
 from .decode import decode_pyramid, default_boxes_for_image_size
 from .objective import compute_objective
 from .targets import encode_targets, remap_targets
@@ -130,6 +139,22 @@ def _pad_classes(x, c_pad: int):
     if x.shape[0] == c_pad:
         return x
     return torch.cat([x, x.new_zeros((c_pad - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+def level_class_chunks(level_sizes, chunk: int, c_total: int) -> List[int]:
+    """Per-level class chunks (os2d_tpu/engine/evaluate.py:530-553): `chunk`
+    bounds the [B, chunk, H, W, 225] correlation tensor at the level with the
+    largest feature map (area a_max); a level of area a_l runs
+    min(max(chunk, (chunk * a_max // a_l) // 8 * 8), ceil8(c_total)) classes
+    per head call. Chunking only batches classes, so the scores are those of
+    uniform chunks. level_sizes: the pyramid levels' image sizes."""
+    areas = []
+    for sz in level_sizes:
+        fm = feature_map_size_for_image(FeatureMapSize(w=sz.w, h=sz.h))
+        areas.append(fm.h * fm.w)
+    a_max = max(areas)
+    cap = -(-c_total // 8) * 8
+    return [min(max(chunk, (chunk * a_max // a) // 8 * 8), cap) for a in areas]
 
 
 def _decode_and_pack(loc_p, cls_p, sizes, scales, num_views, cfg):
@@ -267,8 +292,10 @@ class Evaluator:
         views, num_views = augment_class_images(class_images, class_image_augmentation)
         return self.model.build_class_head_from_images(views), num_views
 
-    def _pyramid_features(self, images_u8, level_sizes, img_normalization):
-        """uint8 [B, H, W, 3] -> backbone feature maps, one per level."""
+    def pyramid_levels(self, images_u8, level_sizes, img_normalization):
+        """uint8 [B, H, W, 3] -> the normalized antialiased pyramid on the
+        model's device, one [B, h_l, w_l, 3] tensor per level (JAX's
+        engine/pyramid.py: device_pyramid, batched)."""
         device = self.model.device
         images = torch.as_tensor(images_u8, device=device)
         if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
@@ -277,14 +304,24 @@ class Evaluator:
         mean = torch.tensor(img_normalization["mean"], dtype=torch.float32, device=device)
         std = torch.tensor(img_normalization["std"], dtype=torch.float32, device=device)
         img = (images.float() / 255.0 - mean) / std
-        fms = []
-        for sz in level_sizes:
-            if (sz.h, sz.w) == tuple(img.shape[1:3]):
-                level = img
-            else:
-                level = resize_bilinear_antialias(img, sz.h, sz.w)
-            fms.append(self.model.extract_features(level))
-        return fms
+        return [img if (sz.h, sz.w) == tuple(img.shape[1:3])
+                else resize_bilinear_antialias(img, sz.h, sz.w) for sz in level_sizes]
+
+    def _pyramid_features(self, images_u8, level_sizes, img_normalization):
+        """uint8 [B, H, W, 3] -> backbone feature maps, one per level."""
+        return [self.model.extract_features(level)
+                for level in self.pyramid_levels(images_u8, level_sizes, img_normalization)]
+
+    def level_chunks(self, level_sizes, c_total: int):
+        """The class chunk of each level for `detect_images`
+        (`level_class_chunks`) without a mesh, with more than one chunk and
+        with cfg.tpu.eval_class_chunk_per_level; else None, one chunk for
+        every level (a mesh's class shards keep one chunk, as JAX's do)."""
+        chunk = int(self.cfg.tpu.eval_class_chunk)
+        if (self.mesh is None and c_total > chunk
+                and bool(self.cfg.tpu.eval_class_chunk_per_level)):
+            return level_class_chunks(level_sizes, chunk, c_total)
+        return None
 
     def _bank(self, class_head):
         """The bank the head runs on: a QuantizedClassHead stays int8 on one
@@ -294,23 +331,29 @@ class Evaluator:
             return dequantize_class_head(class_head)
         return class_head
 
-    def _score_levels(self, fms, class_head, keys=("loc", "cls"), shard_classes=False):
+    def _score_levels(self, fms, class_head, keys=("loc", "cls"), shard_classes=False,
+                      level_chunks=None):
         """Head over class chunks at every level -> {key: [per level]} for the
         head outputs in `keys`: loc [B, C, 4, A_l], cls [B, C, A_l], corners
-        [B, C, 8, A_l]. Chunks of cfg.tpu.eval_class_chunk bound the [B,
-        chunk, H, W, 225] correlation tensor; the last chunk is zero-padded to
-        the full size and the padding trimmed. A QuantizedClassHead's chunks
-        are dequantized as the head runs (zero rows pad to zero features).
-        With shard_classes each rank of the mesh runs the head on its slice
-        of every chunk, and each output is gathered whole."""
+        [B, C, 8, A_l]. Chunks of cfg.tpu.eval_class_chunk (or of
+        level_chunks[l] at level l) bound the [B, chunk, H, W, 225]
+        correlation tensor; the last chunk is zero-padded to the full size
+        and the padding trimmed. A QuantizedClassHead's chunks are
+        dequantized as the head runs (zero rows pad to zero features). With
+        shard_classes each rank of the mesh runs the head on its slice of
+        every chunk, and each output is gathered whole."""
         mesh = self.mesh if shard_classes else None
-        chunk = self._class_chunk(mesh is not None)
         c_total = class_head.pool_mask.shape[0]
-        n_chunks = -(-c_total // chunk)
-        bank = [_pad_classes(x, n_chunks * chunk) for x in class_head]
-        own = slice(0, chunk) if mesh is None else local_rows(mesh, chunk)
+        if level_chunks is None:
+            level_chunks = [self._class_chunk(mesh is not None)] * len(fms)
+        banks = {}
         scores = {k: [] for k in keys}
-        for fm in fms:
+        for fm, chunk in zip(fms, level_chunks):
+            n_chunks = -(-c_total // chunk)
+            if chunk not in banks:
+                banks[chunk] = [_pad_classes(x, n_chunks * chunk) for x in class_head]
+            bank = banks[chunk]
+            own = slice(0, chunk) if mesh is None else local_rows(mesh, chunk)
             parts = {k: [] for k in keys}
             for start in range(0, n_chunks * chunk, chunk):
                 rows = slice(start + own.start, start + own.stop)
@@ -348,7 +391,8 @@ class Evaluator:
         """uint8 image batch [B, H, W, 3] in -> top-K detections out as a
         packed [B, G, K, 6] tensor (x1, y1, x2, y2, score, valid) on the
         model's device, G = classes / num_views; unpack on the host with
-        `unpack_detections`.
+        `unpack_detections`. Smaller levels may run larger class chunks
+        (`level_chunks`).
 
         Args:
           level_sizes: FeatureMapSize (w, h) of each pyramid level.
@@ -368,8 +412,11 @@ class Evaluator:
             if gt is not None:
                 gt = {k: v[rows] for k, v in gt.items()}
         fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
-        scores = self._score_levels(fms, self._bank(class_head),
-                                    shard_classes=self.mesh is not None and not by_images)
+        bank = self._bank(class_head)
+        scores = self._score_levels(fms, bank,
+                                    shard_classes=self.mesh is not None and not by_images,
+                                    level_chunks=self.level_chunks(level_sizes,
+                                                                   bank.pool_mask.shape[0]))
         loc_p, cls_p = scores["loc"], scores["cls"]
         scales = [tuple(s) for s in inverse_scales]
         packed = _decode_and_pack(loc_p, cls_p, list(level_sizes), scales, num_views, self.cfg)
@@ -498,17 +545,76 @@ class Evaluator:
 
 
 def _unported_eval_options(cfg):
-    unported = []
-    viz = cfg.visualization.eval
-    for flag in ("show_class_heatmaps", "show_detections", "show_gt_boxes"):
-        if bool(viz[flag]):
-            unported.append(f"cfg.visualization.eval.{flag}")
     pixel_format = str(cfg.tpu.upload_pixel_format)
     if pixel_format == "yuv420":
-        unported.append("cfg.tpu.upload_pixel_format='yuv420'")
-    elif pixel_format not in ("auto", "rgb8"):
+        return ["cfg.tpu.upload_pixel_format='yuv420'"]
+    if pixel_format not in ("auto", "rgb8"):
         raise ValueError(f"unknown cfg.tpu.upload_pixel_format {pixel_format!r}")
-    return unported
+    return []
+
+
+class _ProducerError:
+    def __init__(self, error):
+        self.error = error
+
+
+_END = object()
+
+
+def _uploaded_batches(dataloader, batch_size, uploader):
+    """(batch_ids, images on the device, level_sizes, inv_scales,
+    initial_sizes) per batch of the raw iterator. A partial tail batch
+    repeats its last image (a bucket's images share one size); only the
+    genuine rows are recorded."""
+    for (batch_ids, base_images, level_sizes, inv_scales,
+         initial_sizes) in dataloader.make_raw_iterator_for_all_images(batch_size):
+        stacked = np.stack(base_images + [base_images[-1]] * (batch_size - len(base_images)))
+        yield batch_ids, uploader.upload(stacked), level_sizes, inv_scales, initial_sizes
+
+
+def _prefetched(items, depth: int):
+    """The items of the iterator `items`, produced on a thread up to `depth`
+    ahead of the consumer (os2d_tpu/engine/evaluate.py:1127-1207); depth 0
+    produces them in the caller's loop. An exception of the producer is
+    raised in the consumer; a consumer that stops early stops the producer."""
+    if depth <= 0:
+        yield from items
+        return
+    q = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        try:
+            for item in items:
+                if not put(item):
+                    return
+        except Exception as e:  # raised again in the consumer
+            put(_ProducerError(e))
+            return
+        put(_END)
+
+    thread = threading.Thread(target=producer, name="os2d-eval-producer", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                return
+            if isinstance(item, _ProducerError):
+                raise item.error
+            yield item
+    finally:
+        stop.set()
+        thread.join()
 
 
 def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=False,
@@ -516,29 +622,38 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     """Full-dataset evaluation -> {mAP@iou: value, ...}
     (os2d/engine/evaluate.py:21-174; os2d_tpu/engine/evaluate.py:1003-1421).
 
-    The model owns its weights (an `Os2dModel`). Batches of one size bucket
-    are uploaded as uint8 (`cfg.tpu.upload_pixel_format` "auto" and "rgb8"
-    both mean rgb8) and detected with TTA views when
-    cfg.eval.class_image_augmentation is set, through the class prescreen
-    when cfg.eval.nms_score_threshold is finite. The host unpacks batch i
-    after batch i+1 was issued. With cfg.tpu.device_side_pyramid=False the
-    pyramid is built on the host instead (the dataloader's
-    `make_iterator_for_all_images`), scored by `Evaluator.score_pyramid`
-    and decoded image by image, without the prescreen. With the prescreen,
-    results also hold "prescreen_pruned": the (batch, class) pairs it skipped. With a
-    `criterion` (an ObjectiveConfig) the results also hold the mean over
-    images of each loss term of the objective, from the same scores (the
-    prescreen is bypassed then: every class row counts as a negative).
-    With cfg.tpu.fold_bn the BatchNorms are folded into a copy of the model
-    before the class heads are built (os2d_tpu/engine/evaluate.py:1017-1020);
-    the caller's model is left as it was. With a `mesh` every rank runs this
-    with its own model (the same weights) and the same loader, the work
-    shards as cfg.tpu.eval_shard_axis says (`Evaluator`), and every rank
-    returns the same results (os2d_tpu/engine/evaluate.py:1003-1022); only
-    rank 0 writes the detections file. With cfg.tpu.quantize_class_feats
-    the class bank is quantized to int8 (os2d_tpu/engine/evaluate.py:
-    1028-1032) and the prescreen does not run. Options of the JAX package
-    that are not ported raise NotImplementedError.
+    The model owns its weights (an `Os2dModel`). Two paths, as in JAX:
+    - fused: batches of one size bucket are uploaded as uint8
+      (`cfg.tpu.upload_pixel_format` "auto" and "rgb8" both mean rgb8) and
+      detected with TTA views when cfg.eval.class_image_augmentation is set,
+      through the class prescreen when cfg.eval.nms_score_threshold is
+      finite. A producer thread stacks and uploads batch i+1 while batch i
+      computes (cfg.tpu.eval_prefetch_depth batches ahead, default 1; 0 runs
+      the serial loop; uploads as in utils/upload.py). The host unpacks
+      batch i after batch i+1 was issued.
+    - chunked per level: with cfg.tpu.device_side_pyramid=False the pyramid
+      is built on the host (the dataloader's `make_iterator_for_all_images`);
+      with cfg.visualization.eval.show_class_heatmaps, which needs the raw
+      level scores, on the device from the raw batches. Either is scored by
+      `Evaluator.score_pyramid` and decoded image by image, without the
+      prescreen.
+    With the prescreen, results also hold "prescreen_pruned": the (batch,
+    class) pairs it skipped. With a `criterion` (an ObjectiveConfig) the
+    results also hold the mean over images of each loss term of the
+    objective, from the same scores (the prescreen is bypassed then: every
+    class row counts as a negative). With cfg.tpu.fold_bn the BatchNorms are
+    folded into a copy of the model before the class heads are built
+    (os2d_tpu/engine/evaluate.py:1017-1020); the caller's model is left as it
+    was. With a `mesh` every rank runs this with its own model (the same
+    weights) and the same loader, the work shards as cfg.tpu.eval_shard_axis
+    says (`Evaluator`), and every rank returns the same results
+    (os2d_tpu/engine/evaluate.py:1003-1022); only rank 0 writes the
+    detections file. With cfg.tpu.quantize_class_feats the class bank is
+    quantized to int8 (os2d_tpu/engine/evaluate.py:1028-1032) and the
+    prescreen does not run. cfg.visualization.eval's show_detections,
+    show_gt_boxes and show_class_heatmaps draw their figures under
+    <cfg.output.path>/viz_<dataset> (os2d_tpu/engine/evaluate.py:1058-1118).
+    The yuv420 upload wire is not ported and raises NotImplementedError.
     """
     unported = _unported_eval_options(cfg)
     if unported:
@@ -560,15 +675,72 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
         class_head = quantize_class_head(class_head)
     img_norm = dataloader.img_normalization
     device_pyramid = bool(cfg.tpu.device_side_pyramid)
-    use_prescreen = (device_pyramid and criterion is None
+    viz_cfg = cfg.visualization.eval
+    fused_blockers = []
+    if not device_pyramid:
+        fused_blockers.append("cfg.tpu.device_side_pyramid=False")
+    if viz_cfg.show_class_heatmaps:
+        fused_blockers.append("show_class_heatmaps needs raw level scores")
+    use_fused = not fused_blockers
+    use_prescreen = (use_fused and criterion is None
                      and evaluator.prescreen_applicable(class_head))
     detect = evaluator.detect_images_prescreened if use_prescreen else evaluator.detect_images
-    if not device_pyramid:
-        logger.info("eval path: host pyramid, per-level dispatches "
-                    "(cfg.tpu.device_side_pyramid=False)")
-    elif use_prescreen:
-        logger.info("eval path: two-phase (no-miss class prescreen at score threshold "
+    if use_fused:
+        logger.info("eval path: fused single-dispatch")
+    else:
+        logger.info("eval path: chunked per-level (fused blocked by: "
+                    + "; ".join(fused_blockers) + ")")
+    if use_prescreen:
+        logger.info("eval path: fused two-phase (no-miss class prescreen at score threshold "
                     f"{float(cfg.eval.nms_score_threshold)})")
+    viz_dir = ""
+    if (viz_cfg.show_detections or viz_cfg.show_gt_boxes
+            or viz_cfg.show_class_heatmaps) and cfg.output.path:
+        viz_dir = os.path.join(cfg.output.path, f"viz_{dataset_name}")
+        os.makedirs(viz_dir, exist_ok=True)
+
+    def _image(image_id):
+        return np.asarray(dataloader.dataset._get_dataset_image_by_id(image_id),
+                          np.float32) / 255.0
+
+    def _visualize(image_id, det_boxes, det_scores, det_labels):
+        """The configured figures of one image (os2d/config.py:230-245)."""
+        if not viz_dir:
+            return
+        from ..utils.visualization import show_detections, show_gt_boxes
+
+        if viz_cfg.show_detections:
+            show_detections(_image(image_id), det_boxes, det_scores, det_labels,
+                            max_detections=viz_cfg.max_detections,
+                            score_threshold=viz_cfg.score_threshold,
+                            save_path=f"{viz_dir}/detections_{image_id}.png")
+        if viz_cfg.show_gt_boxes:
+            ann = dataloader.dataset.get_image_annotation_for_imageid(image_id)
+            show_gt_boxes(_image(image_id), ann.bbox_xyxy, ann.get_field("labels"),
+                          ann.get_field("difficult"), save_path=f"{viz_dir}/gt_{image_id}.png")
+
+    def _heatmaps(image_id, level_outputs, i_image, img_sizes):
+        """Per-class score heatmaps per pyramid level (reference
+        evaluate.py:122-124; files instead of visdom)."""
+        if not (viz_dir and viz_cfg.show_class_heatmaps and num_views == 1):
+            return
+        want_imgs = list(viz_cfg.images_for_heatmaps)
+        if want_imgs and image_id not in want_imgs:
+            return
+        from ..utils.visualization import show_class_heatmap
+
+        img = _image(image_id)
+        want_labels = [int(g) for g in viz_cfg.labels_for_heatmaps] or [
+            int(c) for c in class_ids[:4]]
+        for i_p, out in enumerate(level_outputs):
+            fm = feature_map_size_for_image(img_sizes[i_p])
+            cls = out["cls"][i_image].cpu().numpy()  # [C, A]
+            for gid in want_labels:
+                if gid not in class_ids:
+                    continue
+                row = class_ids.index(gid)
+                show_class_heatmap(img, cls[row].reshape(fm.h, fm.w),
+                                   save_path=f"{viz_dir}/heatmap_{image_id}_cls{gid}_lvl{i_p}.png")
 
     predictions, gts, all_image_ids = [], [], []
     loss_sums, num_loss_images = {}, 0
@@ -602,13 +774,15 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
             valid = out["valid"][i_image]
             labels = np.repeat(np.asarray(class_ids, np.int64), valid.sum(1))
             init_size = initial_sizes_b[i_image]
-            predictions.append({
+            pred = {
                 "boxes": out["boxes"][i_image][valid],
                 "scores": out["scores"][i_image][valid],
                 "labels": labels,
                 "image_size": (init_size.w, init_size.h),
-            })
+            }
+            predictions.append(pred)
             all_image_ids.append(image_id)
+            _visualize(image_id, pred["boxes"], pred["scores"], pred["labels"])
             ann = dataloader.dataset.get_image_annotation_for_imageid(image_id)
             gts.append({
                 "boxes": ann.bbox_xyxy,
@@ -617,31 +791,12 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
                 "image_size": (ann.image_size.w, ann.image_size.h),
             })
 
-    if not device_pyramid:
-        # the host-built pyramid (os2d_tpu/engine/evaluate.py:1343-1400):
-        # every level scored against every class, then each image decoded,
-        # and its losses taken, at its own inverse scales
-        for (batch_ids, pyramids, inv_scales, _,
-             initial_sizes) in dataloader.make_iterator_for_all_images(batch_size):
-            level_outputs = evaluator.score_pyramid(pyramids, class_head)
-            sizes = [FeatureMapSize(w=p.shape[2], h=p.shape[1]) for p in pyramids]
-            for i_image, image_id in enumerate(batch_ids):
-                loc_p = [o["loc"][i_image:i_image + 1] for o in level_outputs]
-                cls_p = [o["cls"][i_image:i_image + 1] for o in level_outputs]
-                scales = [tuple(s) for s in inv_scales[i_image]]
-                packed = _decode_and_pack(loc_p, cls_p, sizes, scales, num_views, cfg)
-                if criterion is not None:
-                    packed = (packed, eval_losses(criterion, cfg, loc_p, cls_p, sizes, scales,
-                                                  _gt_batch([image_id], 1)))
-                _finalize([image_id], initial_sizes[i_image:i_image + 1], packed)
-    else:
+    if use_fused:
+        uploader = uploader_for(model.device)
         pending = None
-        for (batch_ids, base_images, level_sizes, inv_scales,
-             initial_sizes) in dataloader.make_raw_iterator_for_all_images(batch_size):
-            # a partial tail batch repeats its last image (a bucket's images
-            # share one size); only the genuine rows are recorded
-            stacked = np.stack(base_images + [base_images[-1]] * (batch_size - len(base_images)))
-            images = torch.as_tensor(stacked, device=model.device)
+        for batch_ids, images, level_sizes, inv_scales, initial_sizes in _prefetched(
+                _uploaded_batches(dataloader, batch_size, uploader),
+                int(cfg.tpu.eval_prefetch_depth)):
             if criterion is None:
                 packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,
                                 num_views=num_views)
@@ -654,6 +809,37 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
             pending = (batch_ids, initial_sizes, packed)
         if pending is not None:
             _finalize(*pending)
+    else:
+        if device_pyramid:
+            def batches():
+                # the pyramid of the raw batch built on the device (JAX's
+                # per-image device_pyramid), no tail padding
+                for (batch_ids, base_images, level_sizes, inv_scales,
+                     initial_sizes) in dataloader.make_raw_iterator_for_all_images(batch_size):
+                    yield (batch_ids, evaluator.pyramid_levels(np.stack(base_images),
+                                                               level_sizes, img_norm),
+                           inv_scales, initial_sizes)
+        else:
+            def batches():
+                for (batch_ids, pyramids, inv_scales, _,
+                     initial_sizes) in dataloader.make_iterator_for_all_images(batch_size):
+                    yield batch_ids, pyramids, inv_scales, initial_sizes
+        # every level scored against every class (os2d_tpu/engine/
+        # evaluate.py:1343-1400), then each image decoded, and its losses
+        # taken, at its own inverse scales
+        for batch_ids, pyramids, inv_scales, initial_sizes in batches():
+            level_outputs = evaluator.score_pyramid(pyramids, class_head)
+            sizes = [FeatureMapSize(w=p.shape[2], h=p.shape[1]) for p in pyramids]
+            for i_image, image_id in enumerate(batch_ids):
+                loc_p = [o["loc"][i_image:i_image + 1] for o in level_outputs]
+                cls_p = [o["cls"][i_image:i_image + 1] for o in level_outputs]
+                scales = [tuple(s) for s in inv_scales[i_image]]
+                packed = _decode_and_pack(loc_p, cls_p, sizes, scales, num_views, cfg)
+                if criterion is not None:
+                    packed = (packed, eval_losses(criterion, cfg, loc_p, cls_p, sizes, scales,
+                                                  _gt_batch([image_id], 1)))
+                _finalize([image_id], initial_sizes[i_image:i_image + 1], packed)
+                _heatmaps(image_id, level_outputs, i_image, sizes)
 
     results = _finish_evaluation(predictions, gts, cfg, class_ids, dataset_name, t_start,
                                  print_per_class_results, logger, image_ids=all_image_ids)
@@ -698,7 +884,7 @@ def _finish_evaluation(predictions, gts, cfg, class_ids, dataset_name, t_start,
                     results[f"mAP@{iou_thresh:0.2f}_class_{cid}"] = float(
                         res["ap_per_class"][cid])
         logger.info(
-            f"{dataset_name} mAP@{iou_thresh}: {res['map']:0.4f} "
+            f"{dataset_name} mAP@{iou_thresh:0.2f}: {res['map']:0.4f} "
             f"(weighted {res['map_weighted']:0.4f}, recall {res['recall']:0.4f})"
         )
 

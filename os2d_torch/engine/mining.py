@@ -9,12 +9,15 @@ against a random subset of negative classes plus the batch's own classes
 anchors in original coordinates, and the objective's patch-mining mode gives
 per-anchor losses. Per image and role, a greedy NMS over the anchors' crop
 boxes keeps the hardest crops as records that the train dataloader replays
-(`DataloaderOneShotDetection.set_hard_negative_data`).
+(`DataloaderOneShotDetection.set_hard_negative_data`). With
+cfg.visualization.mining.show_mined_patches each image's records are drawn
+under <cfg.output.path>/viz_mining.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from collections import OrderedDict
 
@@ -170,9 +173,6 @@ def mine_hard_patches(dataloader, model, cfg, objective_cfg, rng=None):
     from the dataloader's batch stream. Scoring records no graph, whatever
     the model's training state, and leaves the model as it was.
     """
-    if bool(cfg.visualization.mining.show_mined_patches):
-        raise NotImplementedError("not ported to os2d_torch: "
-                                  "cfg.visualization.mining.show_mined_patches")
     if dataloader.data_augmentation is None:
         raise ValueError("hard patches are mined through the dataloader's data augmentation "
                          "(its random crop size)")
@@ -268,6 +268,16 @@ def mine_hard_patches(dataloader, model, cfg, objective_cfg, rng=None):
                         image_id=image_id,
                     ))
             hardnegdata_per_imageid[image_id] = records
+            if cfg.visualization.mining.show_mined_patches and cfg.output.path:
+                # (reference train.py:365-366; saved to files)
+                from ..utils.visualization import show_mined_patches
+
+                viz_dir = os.path.join(cfg.output.path, "viz_mining")
+                os.makedirs(viz_dir, exist_ok=True)
+                image = np.asarray(dataloader.dataset._get_dataset_image_by_id(image_id),
+                                   np.float32) / 255.0
+                show_mined_patches(image, records,
+                                   save_path=os.path.join(viz_dir, f"mined_{image_id}.png"))
 
     logger.info(f"Hard patch mining finished in {time_since(t_start)}")
     return hardnegdata_per_imageid

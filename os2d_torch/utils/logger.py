@@ -13,9 +13,11 @@ from __future__ import annotations
 
 import datetime
 import logging
+import math
 import os
 import pickle
 import random
+import re
 import sys
 import time
 
@@ -135,3 +137,53 @@ def checkpoint_model(model, optimizer, output_path, i_iter=None, model_name=None
 def load_checkpoint(path, map_location="cpu"):
     """A checkpoint of `checkpoint_model` (tensors, numbers and lists only)."""
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+# Log mining (os2d/utils/logger.py:163-225; os2d_tpu/utils/logger.py:207-249),
+# for the experiments' collect scripts.
+
+def extract_pattern_after_marked_line(log_path, marker, pattern):
+    """The float that `pattern`'s first group matches on the first line
+    matching it after each line that contains `marker`, in order."""
+    with open(log_path) as f:
+        lines = f.readlines()
+    values = []
+    triggered = False
+    rx = re.compile(pattern)
+    for line in lines:
+        if triggered:
+            m = rx.search(line)
+            if m:
+                values.append(float(m.group(1)))
+                triggered = False
+        if marker in line:
+            triggered = True
+    return values
+
+
+def extract_map_value_from_os2d_log(log_path, eval_dataset, metric_name="mAP@0.50"):
+    """The last `metric_name` that the log reports for `eval_dataset`. The
+    marker is the line `evaluate` writes as an evaluation starts ("Starting
+    evaluation on <name>"); the JAX package's twin looks for the reference's
+    "Evaluating on <name>", which neither package writes."""
+    numeric = r"([-+]?\d*\.?\d+(?:[eE][-+]?\d+)?)"
+    values = extract_pattern_after_marked_line(
+        log_path, f"Starting evaluation on {eval_dataset}",
+        rf"{re.escape(metric_name)}\D*{numeric}")
+    return values[-1] if values else None
+
+
+def mine_log_value(full_log, name, mode="max"):
+    """The max, min, first or last non-NaN value of a train_log series."""
+    series = [v for v in full_log.get(name, []) if not math.isnan(v)]
+    if not series:
+        return None
+    if mode == "max":
+        return max(series)
+    if mode == "min":
+        return min(series)
+    if mode == "first":
+        return series[0]
+    if mode == "last":
+        return series[-1]
+    raise ValueError(mode)

@@ -13,6 +13,8 @@ synthetic dicts, the errors, the port's own `.pth`, and a JAX `.pkl` with an
 optax state that loads in a process which never imports jax or optax.
 """
 
+import copy
+import functools
 import os
 import pickle
 import subprocess
@@ -74,20 +76,32 @@ def _tensors(sd):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
 
 
-def resnet_weights(seed):
-    """torchvision-named ResNet50-C4 weights (seeded numpy) with BN counters."""
+@functools.lru_cache(maxsize=None)
+def _seeded_resnet_weights(seed):
     shapes = {k: tuple(v.shape) for k, v in ResNetC4("resnet50", torch.device("meta"))
               .state_dict().items()}
     return _with_counters(_random_like(shapes, seed))
 
 
-def aligner_weights(seed):
-    """The reference TransformationNet's weights (conv.0 ... linear)."""
+def resnet_weights(seed):
+    """torchvision-named ResNet50-C4 weights (seeded numpy) with BN counters;
+    drawn once per seed, a new dict each call."""
+    return dict(_seeded_resnet_weights(seed))
+
+
+@functools.lru_cache(maxsize=None)
+def _seeded_aligner_weights(seed):
     shapes = {}
     for k, v in TransformNet(6, torch.device("meta")).state_dict().items():
         module, field = k.split(".", 1)
         shapes[f"{TN_NAMES[module]}.{field}"] = tuple(v.shape)
     return _with_counters(_random_like(shapes, seed))
+
+
+def aligner_weights(seed):
+    """The reference TransformationNet's weights (conv.0 ... linear); drawn
+    once per seed, a new dict each call."""
+    return dict(_seeded_aligner_weights(seed))
 
 
 def reference_net(merge):
@@ -176,10 +190,14 @@ def start_params():
     return out
 
 
-def _port_model(merge, params):
-    model = Os2dModel(Os2dConfig(merge_branch_parameters=merge), device="cpu")
-    model.load_state_dict(state_dict_from_jax(params))
-    return model
+@pytest.fixture(scope="module")
+def start_models(start_params):
+    """Port models holding the start params, copied by each test."""
+    models = {}
+    for merge, params in start_params.items():
+        models[merge] = Os2dModel(Os2dConfig(merge_branch_parameters=merge), device="cpu")
+        models[merge].load_state_dict(state_dict_from_jax(params))
+    return models
 
 
 def _assert_state_equal(got, want):
@@ -191,7 +209,7 @@ def _assert_state_equal(got, want):
 
 @pytest.mark.parametrize("merge", [True, False], ids=["merged", "separate"])
 @pytest.mark.parametrize("branch", BRANCHES)
-def test_cascade_matches_jax(branch, merge, start_params, tmp_path):
+def test_cascade_matches_jax(branch, merge, start_params, start_models, tmp_path):
     path = str(tmp_path / f"{branch}.pth")
     torch.save(checkpoint_payload(branch, merge), path)
     params = start_params[merge]
@@ -201,7 +219,7 @@ def test_cascade_matches_jax(branch, merge, start_params, tmp_path):
     want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, want_params))
 
     config = Os2dConfig(merge_branch_parameters=merge)
-    model = _port_model(merge, params)
+    model = copy.deepcopy(start_models[merge])
     sd, opt = load_checkpoint_file(path, config, model)
     model.load_state_dict(sd)
     _assert_state_equal(model.state_dict(), want)
@@ -212,7 +230,7 @@ def test_cascade_matches_jax(branch, merge, start_params, tmp_path):
     else:
         assert opt is None and want_opt is None
     if branch == "weakalign_partial":  # the backbone was kept, the aligner replaced
-        start = _port_model(merge, params).state_dict()
+        start = start_models[merge].state_dict()
         assert torch.equal(sd["backbone.layer3.5.conv3.weight"],
                            start["backbone.layer3.5.conv3.weight"])
         assert not torch.equal(sd["transform_net.linear.weight"],
@@ -239,13 +257,13 @@ ERROR_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(ERROR_CASES))
-def test_errors_match_jax(case, start_params, tmp_path):
+def test_errors_match_jax(case, start_params, start_models, tmp_path):
     path = str(tmp_path / f"{case}.pth")
     torch.save(ERROR_CASES[case](), path)
     with pytest.raises((KeyError, ValueError)) as jax_error:
         jos2d.load_checkpoint_file(path, jos2d.Os2dConfig(), params=start_params[True])
     with pytest.raises(jax_error.type):
-        load_checkpoint_file(path, Os2dConfig(), _port_model(True, start_params[True]))
+        load_checkpoint_file(path, Os2dConfig(), copy.deepcopy(start_models[True]))
 
 
 CONVERTERS = ["convert_caffe2_cirtorch", "convert_cirtorch", "convert_maskrcnn_benchmark",

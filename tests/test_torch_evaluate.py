@@ -168,9 +168,8 @@ def test_evaluate_matches_jax_with_tta_and_prescreen(loaders, tmp_path):
 def test_evaluate_rejects_unported_options(loaders):
     _, loader = loaders
     model = Os2dModel(Os2dConfig(), device="cpu")
-    for key, value in (("visualization.eval.show_class_heatmaps", True),
-                       ("visualization.eval.show_detections", True),
-                       ("tpu.upload_pixel_format", "yuv420")):
+    # the visualisation flags run (tests/test_torch_visualization.py)
+    for key, value in (("tpu.upload_pixel_format", "yuv420"),):
         cfg = get_default_cfg()
         cfg.merge_from_list([key, str(value)])
         with pytest.raises(NotImplementedError, match=key.split(".")[-1]):

@@ -1,9 +1,11 @@
 """Import and fallback hygiene of the PyTorch port.
 
-- No file of os2d_torch, nor chip_smoke.py, nor a tool of the port
-  (tools/*torch*.py, the mAP gate's twin among them) imports jax, jaxlib,
-  optax, orbax or os2d_tpu; the HTTP app imports nothing outside the port
-  and the standard library but fastapi.
+- No file of os2d_torch, nor chip_smoke.py, nor demo_torch.py, nor a tool
+  of the port (tools/*torch*.py, the mAP gate's, the class-scaling bench's
+  and the dataset scales' twins among them) imports jax, jaxlib, optax,
+  orbax or os2d_tpu; the HTTP app imports nothing outside the port and the
+  standard library but fastapi. Every one of them but chip_smoke.py and the
+  app imports here.
 - The kernel wrappers (the fp32 gather, the bf16 hat resample, the int8
   hat resample and the resample's backward) have no `except` that could turn
   a failed kernel into a silent CPU fallback; every CUDA source has one.
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = (sorted((ROOT / "os2d_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "os2d_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py", ROOT / "demo_torch.py"]
               + sorted((ROOT / "tools").glob("*torch*.py")))
 FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "os2d_tpu")
 # builds its model when imported (uvicorn imports it for `app`) and needs
@@ -76,7 +79,7 @@ def test_port_modules_import():
     import importlib
 
     for path in PORT_FILES:
-        if path.parent != ROOT and path != APP:
+        if path not in (APP, ROOT / "chip_smoke.py"):
             name = ".".join(path.relative_to(ROOT).with_suffix("").parts)
             importlib.import_module(name.removesuffix(".__init__"))
 

@@ -58,6 +58,7 @@ RTOL, ATOL = 1e-5, 1e-6
 HAT_RTOL, HAT_ATOL = 1e-5, 1e-5
 DEFAULT_TIER_MARGIN = 4e-3
 INT8_HEAD_STEPS = 4
+INT8_HEAD_LOC_ATOL = 2e-4
 pytestmark = pytest.mark.cuda
 
 
@@ -186,7 +187,12 @@ def test_int8_head_on_the_card_matches_the_cpu(cuda_gen):
     two devices, theta and px/py differ in their last bits, and a hat weight
     or a corr value then rounds to the neighbouring 1/127 step now and then,
     which moves a score by at most 1/127 * the largest mask value (1/121):
-    cls is held within INT8_HEAD_STEPS such steps."""
+    cls is held within INT8_HEAD_STEPS such steps. loc does not pass
+    through the resample: it equals the fp32 ("highest") head's loc on the
+    card to the bit, and both differ from the CPU's by the convolutions'
+    order alone, 9.388e-05 at most for either head on these inputs
+    (NVIDIA H100 80GB HBM3, 700 W); loc is held within INT8_HEAD_LOC_ATOL,
+    about twice that, as is the fp32 head's."""
     from os2d_torch.models import TransformNet
     from os2d_torch.models import head as thead
 
@@ -206,6 +212,19 @@ def test_int8_head_on_the_card_matches_the_cpu(cuda_gen):
                                   resample_precision="int8")
     torch.testing.assert_close(got["cls"].cpu(), want["cls"], rtol=0,
                                atol=INT8_HEAD_STEPS / 127 / 121)
+    # loc does not pass through the resample: it is the fp32 head's loc on
+    # the card, and differs from the CPU's as that one does
+    with torch.no_grad():
+        fp32 = thead.head_forward(net, fm, thead.build_class_head(maps),
+                                  resample_precision="highest")
+        fp32_cpu = thead.head_forward(cpu_net, fm.cpu(), thead.build_class_head(maps.cpu()),
+                                      resample_precision="highest")
+    assert torch.equal(got["loc"], fp32["loc"])
+    fp32_err = float((fp32["loc"].cpu() - fp32_cpu["loc"]).abs().max())
+    int8_err = float((got["loc"].cpu() - want["loc"]).abs().max())
+    print(f"loc card vs CPU: fp32 head {fp32_err:.3e}, int8 head {int8_err:.3e}")
+    assert fp32_err <= INT8_HEAD_LOC_ATOL
+    torch.testing.assert_close(got["loc"].cpu(), want["loc"], rtol=0, atol=INT8_HEAD_LOC_ATOL)
     net.requires_grad_(True)
     before = (int8_resample.KERNEL.launches, hat_resample.KERNEL.launches)
     thead.head_forward(net, fm, thead.build_class_head(maps), resample_precision="int8")
@@ -577,3 +596,76 @@ def test_one_rank_nccl_step_matches_the_plain_step(cuda_gen, monkeypatch):
     plain = models[1].state_dict()
     for k, v in models[0].state_dict().items():
         torch.testing.assert_close(v, plain[k], rtol=1e-4, atol=1e-6)
+
+
+# ---- the mAP gate's repeatability (tools/gate_repeatability_torch.py) ----
+# Measured on NVIDIA H100 80GB HBM3, 700 W, at the gate's recipe (batch 4,
+# 480x480, 8 classes): two models from one seed on the same batches have
+# equal first-step losses and part by 1.9e-9 in their weights after the
+# first step, 6e-8 from the fourth on and 2.4e-7 after 200 steps, with
+# cuDNN's default algorithms and with cudnn.deterministic alike; cuDNN's
+# weight gradients repeat to the bit, the backward kernel's dpx and dpy too,
+# its dcorr (fp32 atomic adds) does not; a saved state's bf16+fold eval
+# repeats to the bit.
+STEP_DRIFT_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("deterministic", [False, True], ids=["default", "cudnn_deterministic"])
+def test_train_steps_repeat_but_for_the_dcorr_atomics(deterministic, cuda_gen):
+    """Two TrainSteps from the same weights on the same batches: the first
+    step's loss terms are equal (the forward repeats to the bit), the
+    weights stay within STEP_DRIFT_ATOL over 3 steps, and pinning cuDNN's
+    algorithms changes neither: the drift is the backward's dcorr atomics."""
+    from os2d_torch.config import get_default_cfg
+    from os2d_torch.engine.objective import ObjectiveConfig
+    from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.engine.train import TrainStep, trainable_parameters
+    from os2d_torch.models import Os2dConfig, Os2dModel
+
+    cfg = get_default_cfg()
+    arrays = [_train_arrays(cuda_gen) for _ in range(3)]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        runs = []
+        for _ in range(2):
+            model = Os2dModel(Os2dConfig(class_image_size=128), seed=3)
+            optimizer = create_optimizer(cfg.train.optim, trainable_parameters(model, cfg.train))
+            step = TrainStep(model, ObjectiveConfig(margin_pos=1.0), optimizer, cfg.train)
+            runs.append((model, [step(a, 4) for a in arrays]))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (model_a, metrics_a), (model_b, metrics_b) = runs
+    assert metrics_a[0]["cls_RLL_pos"] > 0  # the backward kernel's dpx/dpy are not zero
+    for k, v in metrics_a[0].items():
+        if k != "grad_norm":  # taken after the backward
+            assert metrics_b[0][k] == v, k
+    state_b = model_b.state_dict()
+    drift = max(float((v - state_b[k]).abs().max()) for k, v in model_a.state_dict().items())
+    assert drift <= STEP_DRIFT_ATOL
+
+
+def test_bf16_fold_eval_repeats_to_the_bit(cuda_gen):
+    """The eval forward has no atomics: two dispatches of one batch at
+    bf16+fold (the gate's bf16_fold_default) give equal packed detections."""
+    import numpy as np
+
+    from os2d_torch.config import get_default_cfg
+    from os2d_torch.engine.evaluate import Evaluator
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.models.os2d import fold_inference_params
+    from os2d_torch.structures.feature_map import FeatureMapSize
+
+    model = fold_inference_params(Os2dModel(Os2dConfig(compute_dtype="bfloat16"), seed=0))
+    ev = Evaluator(model, get_default_cfg())
+    rng = np.random.RandomState(0)
+    head, _ = ev.build_class_heads([rng.randn(128, 128, 3).astype(np.float32)
+                                    for _ in range(4)])
+    images = torch.randint(0, 256, (2, 480, 640, 3), generator=cuda_gen, device="cuda",
+                           dtype=torch.uint8)
+    sizes = [FeatureMapSize(w=512, h=384), FeatureMapSize(w=640, h=480)]
+    inv = [(640 / 512, 480 / 384), (1.0, 1.0)]
+    norm = {"mean": model.config.normalization_mean, "std": model.config.normalization_std}
+    first = ev.detect_images(images, head, sizes, inv, norm)
+    second = ev.detect_images(images, head, sizes, inv, norm)
+    assert first[..., 5].any() and torch.equal(first, second)

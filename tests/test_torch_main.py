@@ -275,7 +275,7 @@ MAIN_OPTS = [
 ]
 
 
-def _launch(data_path, out_path, ranks):
+def _launch(data_path, out_path, ranks, log):
     env = dict(os.environ, OS2D_DEVICE="cpu", DATA_PATH=data_path, OMP_NUM_THREADS="2",
                PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
     opts = MAIN_OPTS + ["output.path", out_path]
@@ -285,26 +285,39 @@ def _launch(data_path, out_path, ranks):
         cmd = [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={ranks}",
                "--master_addr=localhost", f"--master_port={free_port()}", "-m",
                "os2d_torch.main"] + opts + ["tpu.distributed_init", "True"]
-    return subprocess.Popen(cmd, env=env, cwd=out_path, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    return subprocess.Popen(cmd, env=env, cwd=out_path, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
 
 
-@pytest.fixture(scope="module")
-def main_runs(trees, tmp_path_factory):
-    """The CLI in one process and as 2 ranks, at once."""
+@pytest.fixture(scope="module", autouse=True)
+def main_launches(tmp_path_factory):
+    """The CLI in one process and as 2 ranks, at once, started as the module
+    starts so that they run while the dataset tests do; every process is
+    stopped when the module ends."""
     data_path = str(tmp_path_factory.mktemp("main_data"))
     write_grozi_tree(data_path)
+    logs = tmp_path_factory.mktemp("main_logs")
     outs = {ranks: str(tmp_path_factory.mktemp(f"main_out{ranks}")) for ranks in (1, 2)}
-    procs = {ranks: _launch(data_path, out, ranks) for ranks, out in outs.items()}
-    logs = {}
+    procs = {}
     try:
-        for ranks, proc in procs.items():
-            logs[ranks] = proc.communicate(timeout=RUN_TIMEOUT_S)[0]
+        for ranks, out in outs.items():
+            with open(logs / f"ranks{ranks}.txt", "w") as log:
+                procs[ranks] = _launch(data_path, out, ranks, log)
+        yield outs, procs, logs
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+@pytest.fixture(scope="module")
+def main_runs(main_launches):
+    outs, procs, log_dir = main_launches
+    logs = {}
+    for ranks, proc in procs.items():
+        proc.wait(timeout=RUN_TIMEOUT_S)
+        logs[ranks] = (log_dir / f"ranks{ranks}.txt").read_text()
     for ranks, proc in procs.items():
         assert proc.returncode == 0, logs[ranks][-4000:]
     return {ranks: (out, logs[ranks]) for ranks, out in outs.items()}

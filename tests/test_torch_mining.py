@@ -18,12 +18,14 @@ patches per image) with the resample at "highest":
   anchors, crop and anchor boxes exact; losses and scores rtol 1e-4, atol
   1e-5; corners atol 1e-3 px), then three consecutive mined-crop batches
   after `set_hard_negative_data`, with batch flips, equal (images, class
-  ids and GT exact);
+  ids and GT exact); with show_mined_patches, the same figures' image and
+  records;
 - a mined crop box past the image's borders: JAX's zero padding, crop,
   boxes, masks and inverse transform, exactly.
 The training loop with mining is in tests/test_torch_mining_loop.py.
 """
 
+import os
 import random
 
 import jax
@@ -40,6 +42,7 @@ from os2d_tpu.models import Os2dConfig as JaxOs2dConfig
 from os2d_tpu.models import Os2dModel as JaxOs2dModel
 from os2d_tpu.models import init_os2d_params
 from os2d_tpu.structures.feature_map import FeatureMapSize as JaxFMS
+from os2d_tpu.utils import visualization as jviz
 from os2d_torch.config import get_default_cfg
 from os2d_torch.data.dataloader import build_train_dataloader_from_config
 from os2d_torch.engine import mining
@@ -47,6 +50,7 @@ from os2d_torch.engine.objective import ObjectiveConfig, compute_objective
 from os2d_torch.models import Os2dConfig, Os2dModel
 from os2d_torch.models.from_jax import state_dict_from_jax
 from os2d_torch.structures.feature_map import FeatureMapSize, feature_map_size_for_image
+from os2d_torch.utils import visualization as tviz
 from test_torch_train_data import port_dataset, train_cfg
 from test_train import make_dataset
 
@@ -168,23 +172,44 @@ def test_random_scale_pyramids_match_jax(setup):
     assert len(sizes) == 4  # the scales were drawn, and differ
 
 
-def _mine_both(setup):
+def _mine_both(setup, out):
+    """Both packages' mining, seeded alike, with show_mined_patches drawing
+    under out/jax and out/torch."""
     jds, tds, params = setup
     random.seed(SEED)
     jcfg = mining_cfg(jax_default_cfg())
+    jcfg.output.path = str(out / "jax")
+    jcfg.visualization.mining.show_mined_patches = True
     jloader, _ = jax_build(jcfg, dataset_train=jds)
     jmodel = JaxOs2dModel(JaxOs2dConfig(class_image_size=128, resample_precision="highest"))
     want = jmining.mine_hard_patches(jloader, jmodel, params, jcfg, JaxObjectiveConfig())
     cfg = mining_cfg(get_default_cfg())
+    cfg.output.path = str(out / "torch")
+    cfg.visualization.mining.show_mined_patches = True
     loader, _ = build_train_dataloader_from_config(cfg, tds, seed=SEED)
     model = _port_model(params).train_mode(True)
     got = mining.mine_hard_patches(loader, model, cfg, ObjectiveConfig())
     return (jloader, want), (loader, got, model)
 
 
-def test_mining_and_mined_batches_match_jax(setup):
-    (jloader, want), (loader, got, model) = _mine_both(setup)
+def test_mining_and_mined_batches_match_jax(setup, tmp_path, monkeypatch):
+    """Also the mined-patch figures (show_mined_patches): each package's
+    drawing function replaced by a recorder, the same figures of the same
+    image and records (tests/test_torch_visualization.py has the others)."""
+    figures = {"jax": {}, "torch": {}}
+    for name, module in (("jax", jviz), ("torch", tviz)):
+        monkeypatch.setattr(module, "show_mined_patches",
+                            lambda image, records, save_path, calls=figures[name]:
+                            calls.setdefault(os.path.basename(save_path), (image, records)))
+    (jloader, want), (loader, got, model) = _mine_both(setup, tmp_path)
     assert list(got) == list(want)
+    assert set(figures["torch"]) == set(figures["jax"]) == {f"mined_{i}.png" for i in want}
+    for key, (image, records) in figures["torch"].items():
+        j_image, j_records = figures["jax"][key]
+        np.testing.assert_array_equal(image, j_image)
+        assert [r["role"] for r in records] == [r["role"] for r in j_records]
+        for r, jr in zip(records, j_records):
+            np.testing.assert_array_equal(r["crop_position_xyxy"], jr["crop_position_xyxy"])
     roles = set()
     for image_id in want:
         g_recs, w_recs = got[image_id], want[image_id]
@@ -268,10 +293,14 @@ def test_mined_crop_outside_the_image_matches_jax(xyxy):
     assert (np.asarray(got[0]) == 0).all(-1).any()  # the padding is in the crop
 
 
-def test_mining_visualisation_is_not_ported(setup):
+def test_mining_visualisation_is_not_ported(setup, tmp_path):
+    """The flag that this test once saw refused now draws: one figure of
+    mined patches per image under <output.path>/viz_mining (its arrays are
+    held to JAX's in tests/test_torch_visualization.py)."""
     _, tds, params = setup
     cfg = mining_cfg(get_default_cfg())
     cfg.visualization.mining.show_mined_patches = True
+    cfg.output.path = str(tmp_path)
     loader, _ = build_train_dataloader_from_config(cfg, tds, seed=SEED)
-    with pytest.raises(NotImplementedError, match="show_mined_patches"):
-        mining.mine_hard_patches(loader, _port_model(params), cfg, ObjectiveConfig())
+    got = mining.mine_hard_patches(loader, _port_model(params), cfg, ObjectiveConfig())
+    assert sorted(os.listdir(tmp_path / "viz_mining")) == sorted(f"mined_{i}.png" for i in got)

@@ -138,10 +138,11 @@ def test_batch_prefetcher_pool_ordering_and_errors():
     pf.close()
 
 
-@pytest.mark.parametrize("key,value", [("visualization.train.show_target_remapping", True),
+@pytest.mark.parametrize("key,value", [("tpu.upload_pixel_format", "yuv420"),
                                        ("tpu.checkpoint_backend", "orbax")])
 def test_trainval_loop_refuses_unported_options(key, value):
-    """The JAX trainer's options that are not ported raise before any work."""
+    """The JAX trainer's options that are not ported raise before any work
+    (the visualisation flags run: tests/test_torch_visualization.py)."""
     from os2d_torch.engine.train import trainval_loop
 
     cfg = get_default_cfg()
