@@ -5,8 +5,8 @@
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of one eval
                                      # dispatch (fp32, fp32+fold, bf16+fold),
                                      # one train step, one served request (with
-                                     # its host stages) and one
-                                     # served batch of 8
+                                     # its host stages), one served batch of 8
+                                     # and one pretrainer step
 
 The model is `Os2dConfig()` at full width (ResNet50-C4, 1024 channels) with
 seeded random weights. Its resample runs at the "default" tier, the bf16 hat
@@ -246,6 +246,44 @@ Then evaluate()'s host side and the figures (phases 27-29):
               kind written as a file; heatmaps and the remapping's score,
               IoU and loss maps within VIZ_ATOL, targets equal, the loss
               gradients within VIZ_GRAD_RTOL / VIZ_GRAD_ATOL.
+Then the last modules of the JAX package (phases 30-32):
+ 30. yuv_wire  evaluate() over phase 4's planted scenes written as
+              IMG_W x IMG_H files (each pixel replicated 2x2, so that
+              the 0.5 level sees the patches as phase 4 does) (batch 2, WIRE_LEVELS, no TTA, threshold 0.5: the prescreen
+              runs) with upload_pixel_format rgb8 and yuv420 in turns
+              (WIRE_ROUNDS rounds): mAP@0.50 1.0 under both and on the CPU
+              under yuv420, the card's planted hits equal to the CPU's
+              (HOST_SCORE_ATOL, HOST_BOX_ATOL); the wire's decode on the card
+              against the CPU's on the batch (floats within 1e-4, uint8
+              equal); bytes per batch (1.5 against 3 B/px, exactly half)
+              and the host encode, upload and dispatch ms per batch of each
+              wire in turns (StageTimer, synchronized); the hat kernel
+              counted. Then phase 9's first step (its batch, weights and
+              margin) through rgb8 and yuv420 on the card and yuv420 on the
+              CPU: the yuv420 loss within WIRE_LOSS_RTOL of rgb8's, loss and
+              gradient norm within TRAIN_CPU_RTOL card against CPU, one hat
+              and one backward launch.
+ 31. pretrain  the ImageNet pretrainer (os2d_torch/pretrain) at its default
+              arch, crop and dtype (ResNet101, 224 px, bf16) at batch
+              PRETRAIN_BATCH (a cut of its 256) on a synthetic ImageFolder
+              written under build/ (PRETRAIN_CLASSES classes of
+              PRETRAIN_PER_CLASS JPEGs, the last excluded): the first step's
+              loss and top-1 on the card against the CPU from the same
+              weights (PRETRAIN_LOSS_RTOL, PRETRAIN_TOP1_ATOL); the export
+              after it through models.checkpoint.load_checkpoint_file into a
+              ResNet101 Os2dModel, whose C4 features equal the classifier's
+              trunk within PRETRAIN_C4_RTOL_TO_MAX; then s/step (upload and
+              step, synchronized) over PRETRAIN_TIMED_STEPS steps after a
+              warmup, the host's batch load time apart; then train() as a
+              user calls it, PRETRAIN_TRAIN_STEPS steps from its model's
+              init (crops, uploads and steps), as img/s. cuDNN and cuBLAS
+              only: no hand kernel runs here.
+ 32. checkpoint_backend  phase 10's trained model and optimizer written
+              with cfg.tpu.checkpoint_backend "orbax"
+              (torch.distributed.checkpoint into a .dcp tree beside a stub)
+              and with "pickle", each read back, timed: net and optimizer
+              state bit-equal, and through load_checkpoint_file into a card
+              model and a fresh optimizer, bit-equal.
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
 entry point that enqueues a memset, a scatter kernel and a transpose
 kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
@@ -259,11 +297,13 @@ Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-19
 phase 17, each call of phase 21, in each rank of phase 22 its steps and
 each eval, around each card run and each set of timed turns of phases
 23-26, around phase 27's turns, each counted dispatch of phase 28 and phase
-29's card runs; a phase whose kernel was not launched fails (phases 27-29:
-neither the hat nor the gather kernel). The kernels line counts the
-launches of the timed dispatches of phases 6 (hat), 7 (gather) and 23
-(int8) and of phase 10's loop (backward), with those of phases 21 and 27-29
-added to the hat and the gather and those of phase 22's ranks to all three.
+29's card runs and around phase 30's turns and its yuv420 train step; a
+phase whose kernel was not launched fails (phases 27-29: neither the hat
+nor the gather kernel). The kernels line counts the launches of the timed
+dispatches of phases 6 (hat), 7 (gather) and 23 (int8) and of phase 10's
+loop (backward), with those of phases 21 and 27-29 added to the hat and the
+gather, those of phase 22's ranks to all three, and those of phase 30 to
+the hat and the backward.
 Then one {"kernels": [...]} line, the whole run's wall time
 ({"phase": "wall"}), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
@@ -570,13 +610,17 @@ def planted_scenes():
     return np.stack(scenes), patches
 
 
-def write_planted_dataset(root):
+def write_planted_dataset(root, scale=1):
     """The planted scenes as the files and CSV-schema dataframe of
-    tests/test_end_to_end_eval.py:30-69 (JPEG, quality 95)."""
+    tests/test_end_to_end_eval.py:30-69 (JPEG, quality 95); with an integer
+    `scale` the scenes are written `scale` times larger (pixel replication),
+    the class patches as they are."""
+    import numpy as np
     import pandas as pd
     from PIL import Image
 
     scenes, patches = planted_scenes()
+    scenes = np.kron(scenes, np.ones((1, scale, scale, 1), np.uint8))
     os.makedirs(os.path.join(root, "classes", "images"), exist_ok=True)
     os.makedirs(os.path.join(root, "src"), exist_ok=True)
     for cid, patch in enumerate(patches):
@@ -2152,6 +2196,396 @@ def host_side(counts, ctx):
     return total
 
 
+# phases 30-32, the last modules: the yuv420 upload wire (phase 4's planted
+# scenes written at IMG_W by pixel replication, batch 2, WIRE_LEVELS; rgb8 and yuv420 in turns over
+# WIRE_ROUNDS rounds; the yuv420 first train step within WIRE_LOSS_RTOL of
+# rgb8's, the JAX package's wire gate), the ImageNet pretrainer (the
+# trainer's default arch and crop at PRETRAIN_BATCH, a cut of its 256, on a
+# synthetic ImageFolder of PRETRAIN_CLASSES x PRETRAIN_PER_CLASS JPEGs, the
+# last class excluded; bf16 card against bf16 CPU within PRETRAIN_LOSS_RTOL
+# and PRETRAIN_TOP1_ATOL; the export's C4 within PRETRAIN_C4_RTOL_TO_MAX of
+# the classifier's trunk) and the checkpoint backend "orbax"
+# (torch.distributed.checkpoint)
+WIRE_LEVELS = [0.5, 1.0]
+WIRE_ROUNDS = 4
+WIRE_LOSS_RTOL = 2e-2
+PRETRAIN_ARCH, PRETRAIN_SIZE, PRETRAIN_BATCH = "resnet101", 224, 64
+PRETRAIN_CLASSES, PRETRAIN_PER_CLASS = 10, 32
+PRETRAIN_TIMED_STEPS = 5
+PRETRAIN_TRAIN_EPOCHS = 2  # of len(dataset) // PRETRAIN_BATCH steps each
+PRETRAIN_LOSS_RTOL, PRETRAIN_TOP1_ATOL = 2e-2, 4 / 64
+PRETRAIN_C4_RTOL_TO_MAX = 1e-4
+
+
+def write_image_folder(root):
+    """PRETRAIN_CLASSES class directories of PRETRAIN_PER_CLASS 256x320
+    JPEGs (a class colour under seeded noise) and an exclusion file naming
+    the last class, as tests/test_pretrain.py's folder."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(4)
+    for c in range(PRETRAIN_CLASSES):
+        d = os.path.join(root, f"n{c:08d}")
+        os.makedirs(d, exist_ok=True)
+        colour = rng.randint(0, 256, 3)
+        for i in range(PRETRAIN_PER_CLASS):
+            img = np.clip(colour + rng.randint(-60, 61, (256, 320, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(d, f"img{i}.JPEG"), quality=90)
+    exclude = os.path.join(root, "exclude.txt")
+    with open(exclude, "w") as f:
+        f.write(f"n{PRETRAIN_CLASSES - 1:08d}\n")
+    return exclude
+
+
+def last_modules(counts, ctx):
+    """Phases 30 (yuv_wire), 31 (pretrain) and 32 (checkpoint_backend).
+    `counts` as for model_options; ctx holds the main model and its state,
+    phase 4's eval config, phase 9's train recipe, batch and objective, and
+    phase 10's trained model and optimizer. Returns {kernel: launches} of
+    the counted runs of phase 30."""
+    import pickle
+    import random
+
+    import numpy as np
+    import torch
+
+    from os2d_torch.data.dataloader import DataloaderOneShotDetection
+    from os2d_torch.data.dataset import DatasetOneShotDetection
+    from os2d_torch.engine.evaluate import Evaluator, evaluate, unpack_detections
+    from os2d_torch.engine.optimization import create_optimizer
+    from os2d_torch.engine.train import TrainStep, prepare_batch_arrays, trainable_parameters
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.models.checkpoint import load_checkpoint_file
+    from os2d_torch.ops.cuda import BUILD_DIR
+    from os2d_torch.ops.pixel_format import (
+        PackedYuv420,
+        decode_wire_to_u8,
+        rgb_to_yuv420,
+        yuv420_to_rgb_f32,
+    )
+    from os2d_torch.pretrain import train_imagenet as pretrain
+    from os2d_torch.utils.logger import checkpoint_model, load_checkpoint
+    from os2d_torch.utils.profiling import StageTimer
+    from os2d_torch.utils.upload import uploader_for
+
+    dev = ctx.model.device
+    total = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def same(a, b):
+        return (a is None and b is None) or (
+            a is not None and b is not None and torch.equal(a.cpu(), b.cpu()))
+
+    def cpu_twin(state, config=Os2dConfig()):
+        m = Os2dModel(config, device="cpu")
+        m.load_state_dict({k: v.cpu() for k, v in state.items()})
+        return m
+
+    # ---- 30. yuv_wire: evaluate() and a train step through the 4:2:0 wire ----
+    t_phase = time.perf_counter()
+    cfg = ctx.eval_cfg.clone()
+    cfg.eval.class_image_augmentation = ""
+    cfg.eval.batch_size = 2
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        # phase 4's scenes written at IMG_W x IMG_H, each pixel replicated
+        # 2x2: the patches are 480 px, and 240 px on the anchor grid at the
+        # pyramid's 0.5 level. (Phase 4's 640x480 files resized to IMG_W
+        # on reading blur the patches, and the planted hits are lost.)
+        dataset = DatasetOneShotDetection(
+            write_planted_dataset(root, IMG_W // 640), gt_path=os.path.join(root, "classes",
+                                                                            "images"),
+            image_path=os.path.join(root, "src"), name="planted-wire", image_size=IMG_W,
+            eval_scale=IMG_W, cache_images=True)
+        loader = DataloaderOneShotDetection(dataset, batch_size=2,
+                                            pyramid_scales_eval=WIRE_LEVELS)
+
+        def run(model, fmt, tag):
+            run_cfg = cfg.clone()
+            run_cfg.tpu.upload_pixel_format = fmt
+            run_cfg.visualization.eval.path_to_save_detections = os.path.join(root, tag)
+            t0 = time.perf_counter()
+            res = evaluate(loader, model, run_cfg)
+            sync()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(root, tag, "planted-wire_detections.pkl"), "rb") as f:
+                return res, pickle.load(f), wall
+
+        for fmt in ("rgb8", "yuv420"):  # warm-up; reads the files into the cache
+            run(ctx.model, fmt, f"warm_{fmt}")
+        counts.reset()
+        walls, outs = {"rgb8": [], "yuv420": []}, {}
+        for i_round in range(WIRE_ROUNDS):
+            order = ["rgb8", "yuv420"] if i_round % 2 == 0 else ["yuv420", "rgb8"]
+            for fmt in order:
+                res, dets, wall = run(ctx.model, fmt, f"{fmt}{i_round}")
+                walls[fmt].append(wall)
+                outs[fmt] = (res, dets)
+        wire_launches = counts.read()
+        cpu_res, cpu_dets, cpu_wall = run(cpu_twin(ctx.base_state), "yuv420", "cpu")
+
+        # the decode of this batch's wire, the card against the CPU
+        item = next(loader.make_raw_iterator_for_all_images(2))
+        stacked = np.stack(item[1])
+        packed = rgb_to_yuv420(stacked)
+        flat_cpu = torch.from_numpy(packed.data)
+        flat_card = flat_cpu.to(dev)
+        float_diff = float((yuv420_to_rgb_f32(flat_card, packed.shape).cpu()
+                            - yuv420_to_rgb_f32(flat_cpu, packed.shape)).abs().max())
+        u8_equal = bool(torch.equal(
+            decode_wire_to_u8(PackedYuv420(flat_card, packed.shape)).cpu(),
+            decode_wire_to_u8(PackedYuv420(flat_cpu, packed.shape))))
+
+        # bytes and milliseconds of the two wires per batch, in turns: the
+        # host encode, the upload (pinned staging, copy stream) and the
+        # dispatch that decodes the wire; each stage ends synchronized
+        ev = Evaluator(ctx.model, cfg)
+        class_images, _, _ = loader.get_all_class_images()
+        head, _ = ev.build_class_heads(class_images)
+        uploader = uploader_for(dev)
+        timer = StageTimer()
+        wire_bytes = {}
+        for i_round in range(WIRE_ROUNDS + 1):
+            order = ["rgb8", "yuv420"] if i_round % 2 == 0 else ["yuv420", "rgb8"]
+            for fmt in order:
+                tag = fmt if i_round else "warm"  # round 0 warms up
+                with timer.stage(f"{tag}_encode"):
+                    wire = rgb_to_yuv420(stacked).data if fmt == "yuv420" else stacked
+                with timer.stage(f"{tag}_upload"):
+                    up = uploader.upload(wire)
+                with timer.stage(f"{tag}_dispatch"):
+                    images = PackedYuv420(up, stacked.shape) if fmt == "yuv420" else up
+                    unpack_detections(ev.detect_images(images, head, item[2], item[3][0],
+                                                       loader.img_normalization))
+                wire_bytes[fmt] = int(wire.nbytes)
+    stage_ms = {k: v["total_s"] / v["count"] * 1e3 for k, v in timer.summary().items()
+                if not k.startswith("warm")}
+    n_pixels = stacked.shape[0] * stacked.shape[1] * stacked.shape[2]
+    cpu_agree, cpu_diff = planted_hits_agree(outs["yuv420"][1], cpu_dets)
+    same_hits, wire_diff = planted_hits_agree(outs["yuv420"][1], outs["rgb8"][1],
+                                              score_atol=float("inf"), box_atol=float("inf"))
+    maps = {fmt: outs[fmt][0]["mAP@0.50"] for fmt in outs}
+
+    # one train step at the default recipe (phase 9's batch, weights and
+    # margin) through each wire on the card, and through yuv420 on the CPU
+    train_start = Os2dModel(Os2dConfig(), device=dev, seed=1).state_dict()
+    first = {}
+    step_launches = {}
+    for name, fmt, device in (("rgb8", "rgb8", dev), ("yuv420", "yuv420", dev),
+                              ("cpu_yuv420", "yuv420", torch.device("cpu"))):
+        m = Os2dModel(Os2dConfig(), device=device)
+        m.load_state_dict({k: v.to(device) for k, v in train_start.items()})
+        opt = create_optimizer(ctx.train_cfg.train.optim,
+                               trainable_parameters(m, ctx.train_cfg.train))
+        step = TrainStep(m, ctx.first_objective, opt, ctx.train_cfg.train)
+        arrays, c_pad = prepare_batch_arrays(ctx.train_batch, device, pixel_format=fmt)
+        if name == "yuv420":
+            if not isinstance(arrays["images"], PackedYuv420):
+                raise SystemExit("yuv_wire: prepare_batch_arrays did not upload the wire")
+            counts.reset()
+        first[name] = step(arrays, c_pad)
+        if name == "yuv420":
+            sync()
+            step_launches = counts.read()
+        del m, opt, step, arrays
+    wire_loss_err = abs(first["yuv420"]["loss"] - first["rgb8"]["loss"]) / first["rgb8"]["loss"]
+    step_err = {k: abs(first["yuv420"][k] - first["cpu_yuv420"][k])
+                / max(abs(first["cpu_yuv420"][k]), 1e-12) for k in ("loss", "grad_norm")}
+    emit({"phase": "yuv_wire", "images": f"2x{IMG_W}x{IMG_H} (phase 4's scenes, 2x2 pixels)",
+          "levels": WIRE_LEVELS, "rounds": WIRE_ROUNDS,
+          "order": "rgb8, yuv420, yuv420, rgb8, ...", "wall_s": walls,
+          "median_wall_s": {k: float(np.median(v)) for k, v in walls.items()},
+          "mAP@0.50": maps, "cpu_yuv420_mAP@0.50": cpu_res["mAP@0.50"], "cpu_wall_s": cpu_wall,
+          "card_matches_cpu": cpu_agree, "card_cpu_hits_max_score_and_box_diff": cpu_diff,
+          "yuv420_against_rgb8_hits_max_score_and_box_diff": wire_diff,
+          "decode_card_cpu_max_abs_float": float_diff, "decode_card_cpu_u8_equal": u8_equal,
+          "bytes_per_batch": wire_bytes,
+          "bytes_per_pixel": {k: v / n_pixels for k, v in wire_bytes.items()},
+          "stage_ms_per_batch": stage_ms, "launches": wire_launches,
+          "train_first_step": first, "train_yuv420_against_rgb8_loss_rel": wire_loss_err,
+          "train_card_cpu_rel": step_err, "train_launches": step_launches,
+          "seconds": time.perf_counter() - t_phase})
+    if not (maps["rgb8"] == maps["yuv420"] == cpu_res["mAP@0.50"] == 1.0 and same_hits):
+        raise SystemExit(f"yuv_wire: planted patches not found under both wires and on the "
+                         f"CPU: {maps}, cpu {cpu_res['mAP@0.50']}")
+    if not cpu_agree:
+        raise SystemExit(f"yuv_wire: the card's yuv420 hits differ from the CPU's {cpu_diff}")
+    if not (float_diff <= 1e-4 and u8_equal):
+        raise SystemExit(f"yuv_wire: the card's decode differs from the CPU's ({float_diff}, "
+                         f"uint8 equal {u8_equal})")
+    if wire_bytes["yuv420"] * 2 != wire_bytes["rgb8"]:
+        raise SystemExit(f"yuv_wire: {wire_bytes} bytes per batch, not 1.5 against 3 B/px")
+    if not wire_loss_err <= WIRE_LOSS_RTOL:
+        raise SystemExit(f"yuv_wire: the yuv420 first loss is {wire_loss_err} from rgb8's")
+    if not all(e <= TRAIN_CPU_RTOL for e in step_err.values()):
+        raise SystemExit(f"yuv_wire: the yuv420 step on the card against the CPU {step_err}")
+    if not wire_launches["hat_resample_correlation"]:
+        raise SystemExit("yuv_wire: evaluate() launched no hat kernel")
+    for kernel in ("hat_resample_correlation", "resample_correlation_backward"):
+        if step_launches[kernel] != 1:
+            raise SystemExit(f"yuv_wire: the train step launched {kernel} "
+                             f"{step_launches[kernel]} times, expected 1")
+    add(wire_launches)
+    add(step_launches)
+
+    # ---- 31. pretrain: the ImageNet trainer's step at its default arch ----
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        exclude = write_image_folder(os.path.join(root, "train"))
+        with open(exclude) as f:
+            excluded = {line.strip() for line in f if line.strip()}
+        dataset = pretrain.ImageFolderDataset(os.path.join(root, "train"), excluded)
+        steps_per_epoch = len(dataset) // PRETRAIN_BATCH
+        batches = pretrain.batch_iterator(dataset, PRETRAIN_BATCH, PRETRAIN_SIZE, seed=0,
+                                          rng=random.Random(1))
+        load_s = []
+
+        def next_batch():
+            t0 = time.perf_counter()
+            images, labels = next(batches)
+            load_s.append(time.perf_counter() - t0)
+            return torch.from_numpy(images), torch.from_numpy(labels)
+
+        def trainer(device, state=None):
+            m = pretrain.init_classifier(PRETRAIN_ARCH, dataset.num_classes, device, seed=0)
+            if state is not None:
+                m.load_state_dict(state)
+            chain = pretrain.ChainSGD(m.parameters(), pretrain.piecewise_constant_schedule(
+                0.1, {steps_per_epoch * 30: 0.1, steps_per_epoch * 60: 0.1}))
+            return m, pretrain.make_train_step(m, chain)  # bf16, the trainer's default
+
+        images, labels = next_batch()
+        card_model, card_step = trainer(dev)
+        start = {k: v.detach().cpu().clone() for k, v in card_model.state_dict().items()}
+        t0 = time.perf_counter()
+        card_first = {k: float(v) for k, v in card_step(images.to(dev), labels.to(dev)).items()}
+        first_s = time.perf_counter() - t0
+        cpu_model, cpu_step = trainer("cpu", start)
+        t0 = time.perf_counter()
+        cpu_first = {k: float(v) for k, v in cpu_step(images, labels).items()}
+        cpu_first_s = time.perf_counter() - t0
+        del cpu_model, cpu_step
+
+        # the export after the first step, through the checkpoint cascade
+        export_path = os.path.join(root, "backbone_torchvision.pkl")
+        with open(export_path, "wb") as f:
+            pickle.dump(pretrain.export_torchvision_state_dict(card_model), f)
+        det_config = Os2dConfig(backbone_arch=PRETRAIN_ARCH)
+        detector = Os2dModel(det_config, device=dev)
+        state, _ = load_checkpoint_file(export_path, det_config, detector)
+        detector.load_state_dict(state)
+        x = torch.randn(1, 320, 320, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+        with torch.no_grad():
+            c4 = detector.extract_features(x)
+            trunk = card_model.stem(x.permute(0, 3, 1, 2))
+            for block in card_model.blocks():
+                trunk = block(trunk)
+            trunk = trunk.permute(0, 2, 3, 1)
+        c4_rel = float((c4 - trunk).abs().max() / trunk.abs().max())
+        del detector, state
+
+        step_s, losses = [], []
+        for i in range(PRETRAIN_TIMED_STEPS + 1):  # the first one warms up
+            images, labels = next_batch()
+            sync()
+            t0 = time.perf_counter()
+            metrics = card_step(images.to(dev), labels.to(dev))
+            losses.append(float(metrics["loss"]))
+            sync()
+            if i:
+                step_s.append(time.perf_counter() - t0)
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else None
+        if ctx.profile:
+            profile_run("profile_pretrain", lambda: card_step(images.to(dev), labels.to(dev)),
+                        float(np.median(step_s)))
+
+        # train() end to end, as a user calls it: its model's init, then the
+        # host's crops, the uploads and the steps of PRETRAIN_TRAIN_EPOCHS
+        # epochs (no export)
+        train_steps = PRETRAIN_TRAIN_EPOCHS * steps_per_epoch
+        t0 = time.perf_counter()
+        trained = pretrain.train(os.path.join(root, "train"), exclude, PRETRAIN_ARCH,
+                                 PRETRAIN_BATCH, PRETRAIN_TRAIN_EPOCHS, output_path=None,
+                                 log_every=train_steps, device=dev)
+        sync()
+        train_wall = time.perf_counter() - t0
+        trained_finite = all(bool(torch.isfinite(p).all()) for p in trained.parameters())
+        del trained
+    emit({"phase": "pretrain", "arch": PRETRAIN_ARCH, "image_size": PRETRAIN_SIZE,
+          "batch": PRETRAIN_BATCH, "reduced": {"batch": "256 -> 64"},
+          "classes": dataset.num_classes, "images": len(dataset), "compute_dtype": "bfloat16",
+          "first_step": card_first, "cpu_first_step": cpu_first, "first_step_s": first_s,
+          "cpu_first_step_s": cpu_first_s, "timed_steps": PRETRAIN_TIMED_STEPS,
+          "step_s": step_s, "median_step_s": float(np.median(step_s)),
+          "images_per_s": PRETRAIN_BATCH / float(np.median(step_s)),
+          "median_batch_load_s": float(np.median(load_s)), "losses": losses,
+          "train_steps": train_steps, "train_wall_s": train_wall,
+          "train_images_per_s": train_steps * PRETRAIN_BATCH / train_wall,
+          "export_c4_rel_to_max": c4_rel, "peak_mb": peak_mb,
+          "seconds": time.perf_counter() - t_phase})
+    loss_err = abs(card_first["loss"] - cpu_first["loss"]) / cpu_first["loss"]
+    if not (np.isfinite(card_first["loss"]) and loss_err <= PRETRAIN_LOSS_RTOL):
+        raise SystemExit(f"pretrain: first loss {card_first['loss']} on the card, "
+                         f"{cpu_first['loss']} on the CPU")
+    if not abs(card_first["top1"] - cpu_first["top1"]) <= PRETRAIN_TOP1_ATOL:
+        raise SystemExit(f"pretrain: first top-1 {card_first['top1']} on the card, "
+                         f"{cpu_first['top1']} on the CPU")
+    if not c4_rel <= PRETRAIN_C4_RTOL_TO_MAX:
+        raise SystemExit(f"pretrain: the exported backbone's C4 is {c4_rel} from the trunk's")
+    if not trained_finite:
+        raise SystemExit("pretrain: train() left weights that are not finite")
+    del card_model, card_step
+
+    # ---- 32. checkpoint_backend: phase 10's trained model and optimizer via DCP ----
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        times = {}
+        paths = {}
+        for backend in ("pickle", "orbax"):
+            t0 = time.perf_counter()
+            paths[backend] = checkpoint_model(ctx.train_model, ctx.train_opt, root,
+                                              model_name=backend, backend=backend)
+            times[f"{backend}_save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            payload = load_checkpoint(paths[backend])
+            times[f"{backend}_load_s"] = time.perf_counter() - t0
+        dcp_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                     os.walk(os.path.join(root, "checkpoint_orbax.dcp")) for f in fs) / 2**20
+        want_net = ctx.train_model.state_dict()
+        want_opt = ctx.train_opt.state_dict()
+        net_equal = set(payload["net"]) == set(want_net) and all(
+            torch.equal(payload["net"][k], want_net[k].cpu()) for k in want_net)
+        opt_equal = payload["optimizer"]["param_groups"] == want_opt["param_groups"] and all(
+            same(payload["optimizer"]["state"][i][k], v)
+            for i, s in want_opt["state"].items() for k, v in s.items())
+        loaded = Os2dModel(Os2dConfig(), device=dev, seed=3)
+        sd, opt_state = load_checkpoint_file(paths["orbax"], Os2dConfig(), loaded)
+        loaded.load_state_dict(sd)
+        cascade_equal = all(torch.equal(v, want_net[k]) for k, v in loaded.state_dict().items())
+        restored = create_optimizer(ctx.train_cfg.train.optim,
+                                    trainable_parameters(loaded, ctx.train_cfg.train))
+        restored.load_state_dict(opt_state)
+        restored_equal = all(same(restored.state_dict()["state"][i][k], v)
+                             for i, s in want_opt["state"].items() for k, v in s.items())
+        stub_keys = sorted(torch.load(paths["orbax"], weights_only=True))
+    emit({"phase": "checkpoint_backend", "backend": "orbax (torch.distributed.checkpoint)",
+          "tensors": len(want_net), "optimizer_states": len(want_opt["state"]),
+          "dcp_mb": dcp_mb, "stub_keys": stub_keys, **times, "net_bit_equal": net_equal,
+          "optimizer_bit_equal": opt_equal, "cascade_bit_equal": cascade_equal,
+          "restored_optimizer_bit_equal": restored_equal,
+          "seconds": time.perf_counter() - t_phase})
+    if not (net_equal and opt_equal and cascade_equal and restored_equal):
+        raise SystemExit("checkpoint_backend: the DCP round trip is not bit-equal")
+    return total
+
+
 def main(argv):
     t_run = time.perf_counter()
     import torch
@@ -3361,6 +3795,14 @@ def main(argv):
                               batches=batches, sizes=sizes, train_set=train_set,
                               train_cfg=train_cfg, first_objective=first_objective))
 
+    # ---- 30.-32. the yuv420 wire, the pretrainer, the checkpoint backend ----
+    last_launches = last_modules(
+        types.SimpleNamespace(reset=reset_counts, read=read_counts, require=require_launches),
+        types.SimpleNamespace(model=model, base_state=base_state, eval_cfg=eval_cfg,
+                              train_cfg=train_cfg, train_batch=train_batch,
+                              first_objective=first_objective, train_model=train_model,
+                              train_opt=train_opt, profile="--profile" in argv))
+
     if "--profile" in argv:
         profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),
                     main_median)
@@ -3393,7 +3835,8 @@ def main(argv):
         "launches": (main_counts["hat_resample_correlation"]
                      + serve_counts["hat_resample_correlation"]
                      + dist_counts["hat_resample_correlation"]
-                     + host_launches["hat_resample_correlation"]),
+                     + host_launches["hat_resample_correlation"]
+                     + last_launches["hat_resample_correlation"]),
         "max_abs_err": max(errs["hat_resample_correlation"].values()),
         "ms": hat_ms,
         "plain_ms": hat_plain_ms,
@@ -3418,7 +3861,8 @@ def main(argv):
         "source": "os2d_torch/csrc/resample_backward.cu",
         "replaces": "os2d_tpu/ops/sampling.py:147",
         "launches": (loop_counts["resample_correlation_backward"]
-                     + dist_counts["resample_correlation_backward"]),
+                     + dist_counts["resample_correlation_backward"]
+                     + last_launches["resample_correlation_backward"]),
         "max_abs_err": max(max(e.values())
                            for e in errs["resample_correlation_backward"].values()),
         "ms": bwd_ms,

@@ -10,12 +10,12 @@ eval path (`eval_class_chunk`, `eval_class_chunk_per_level`,
 `eval_pre_top_k`, `eval_top_k`, `eval_class_prescreen`,
 `eval_prefetch_depth`, `fold_bn`,
 `quantize_class_feats`, `device_side_pyramid`, `eval_shard_axis`),
-`corr_interior_first` and the model keys in `main.py`, refuses where they
-are read the options whose paths are not ported
-(`upload_pixel_format="yuv420"`, `checkpoint_backend="orbax"`) and ignores
-the rest (the model's numerics are its `Os2dConfig`'s, as in the JAX
-package; `upload_streams` and `upload_serialize` shape a TPU upload and
-nothing on a card needs them, see `os2d_torch/utils/upload.py`).
+`upload_pixel_format` (in eval and training; "auto" means rgb8 here, see
+`os2d_torch/ops/pixel_format.py`), `checkpoint_backend` (in training),
+`corr_interior_first` and the model keys in `main.py`, and ignores the rest
+(the model's numerics are its `Os2dConfig`'s, as in the JAX package;
+`upload_streams` and `upload_serialize` shape a TPU upload and nothing on a
+card needs them, see `os2d_torch/utils/upload.py`).
 """
 
 from __future__ import annotations

@@ -33,8 +33,10 @@
   eval_class_chunk bounds the correlation tensor at the largest level.
 - `evaluate` prepares and uploads batch i+1 on a producer thread while batch
   i computes (cfg.tpu.eval_prefetch_depth batches ahead; 0 runs the serial
-  loop), through pinned host memory on a card (utils/upload.py), and draws
-  the figures of cfg.visualization.eval (utils/visualization.py).
+  loop), through pinned host memory on a card (utils/upload.py), as rgb8 or,
+  with cfg.tpu.upload_pixel_format "yuv420", as JAX's 4:2:0 wire
+  (ops/pixel_format.py), and draws the figures of cfg.visualization.eval
+  (utils/visualization.py).
 """
 
 from __future__ import annotations
@@ -60,6 +62,13 @@ from ..models.head import (
 )
 from ..models.os2d import fold_inference_params
 from ..ops.geometry import l2_normalize_channels
+from ..ops.pixel_format import (
+    PackedYuv420,
+    decode_to_float_rgb,
+    decode_wire_to_u8,
+    resolve_pixel_format,
+    upload_images,
+)
 from ..ops.sampling import resize_bilinear_antialias
 from ..parallel.mesh import all_gather_cat, all_gather_chunked, local_rows, primary_host
 from ..structures.feature_map import FeatureMapSize, feature_map_size_for_image
@@ -293,22 +302,28 @@ class Evaluator:
         return self.model.build_class_head_from_images(views), num_views
 
     def pyramid_levels(self, images_u8, level_sizes, img_normalization):
-        """uint8 [B, H, W, 3] -> the normalized antialiased pyramid on the
-        model's device, one [B, h_l, w_l, 3] tensor per level (JAX's
-        engine/pyramid.py: device_pyramid, batched)."""
+        """uint8 [B, H, W, 3], or a PackedYuv420 wire, -> the normalized
+        antialiased pyramid on the model's device, one [B, h_l, w_l, 3]
+        tensor per level (JAX's engine/pyramid.py: device_pyramid, batched).
+        A wire decodes here, straight to float (os2d_tpu/engine/
+        evaluate.py:576-577)."""
         device = self.model.device
-        images = torch.as_tensor(images_u8, device=device)
-        if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
-            raise ValueError(f"images must be uint8 [B, H, W, 3], got "
-                             f"{images.dtype} {tuple(images.shape)}")
+        if isinstance(images_u8, PackedYuv420):
+            images = PackedYuv420(torch.as_tensor(images_u8.data, device=device),
+                                  images_u8.shape)
+        else:
+            images = torch.as_tensor(images_u8, device=device)
+            if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
+                raise ValueError(f"images must be uint8 [B, H, W, 3], got "
+                                 f"{images.dtype} {tuple(images.shape)}")
         mean = torch.tensor(img_normalization["mean"], dtype=torch.float32, device=device)
         std = torch.tensor(img_normalization["std"], dtype=torch.float32, device=device)
-        img = (images.float() / 255.0 - mean) / std
+        img = (decode_to_float_rgb(images) / 255.0 - mean) / std
         return [img if (sz.h, sz.w) == tuple(img.shape[1:3])
                 else resize_bilinear_antialias(img, sz.h, sz.w) for sz in level_sizes]
 
     def _pyramid_features(self, images_u8, level_sizes, img_normalization):
-        """uint8 [B, H, W, 3] -> backbone feature maps, one per level."""
+        """uint8 [B, H, W, 3] or a wire -> backbone feature maps, one per level."""
         return [self.model.extract_features(level)
                 for level in self.pyramid_levels(images_u8, level_sizes, img_normalization)]
 
@@ -388,11 +403,13 @@ class Evaluator:
     def detect_images(self, images_u8, class_head: ClassHead, level_sizes,
                       inverse_scales, img_normalization, num_views: int = 1,
                       objective_cfg=None, gt=None):
-        """uint8 image batch [B, H, W, 3] in -> top-K detections out as a
-        packed [B, G, K, 6] tensor (x1, y1, x2, y2, score, valid) on the
-        model's device, G = classes / num_views; unpack on the host with
-        `unpack_detections`. Smaller levels may run larger class chunks
-        (`level_chunks`).
+        """uint8 image batch [B, H, W, 3] (or its PackedYuv420 wire) in ->
+        top-K detections out as a packed [B, G, K, 6] tensor (x1, y1, x2,
+        y2, score, valid) on the model's device, G = classes / num_views;
+        unpack on the host with `unpack_detections`. Smaller levels may run
+        larger class chunks (`level_chunks`). Under image sharding a wire
+        decodes to uint8 before the rows are split, as JAX's mesh paths
+        decode up front.
 
         Args:
           level_sizes: FeatureMapSize (w, h) of each pyramid level.
@@ -408,6 +425,10 @@ class Evaluator:
         if by_images:
             self.check_image_batch(images_u8.shape[0])
             rows = local_rows(self.mesh, images_u8.shape[0])
+            if isinstance(images_u8, PackedYuv420):
+                images_u8 = decode_wire_to_u8(
+                    PackedYuv420(torch.as_tensor(images_u8.data, device=self.model.device),
+                                 images_u8.shape))
             images_u8 = images_u8[rows]
             if gt is not None:
                 gt = {k: v[rows] for k, v in gt.items()}
@@ -544,15 +565,6 @@ class Evaluator:
         return full
 
 
-def _unported_eval_options(cfg):
-    pixel_format = str(cfg.tpu.upload_pixel_format)
-    if pixel_format == "yuv420":
-        return ["cfg.tpu.upload_pixel_format='yuv420'"]
-    if pixel_format not in ("auto", "rgb8"):
-        raise ValueError(f"unknown cfg.tpu.upload_pixel_format {pixel_format!r}")
-    return []
-
-
 class _ProducerError:
     def __init__(self, error):
         self.error = error
@@ -561,15 +573,17 @@ class _ProducerError:
 _END = object()
 
 
-def _uploaded_batches(dataloader, batch_size, uploader):
+def _uploaded_batches(dataloader, batch_size, uploader, pixel_format="rgb8", logger=None):
     """(batch_ids, images on the device, level_sizes, inv_scales,
     initial_sizes) per batch of the raw iterator. A partial tail batch
     repeats its last image (a bucket's images share one size); only the
-    genuine rows are recorded."""
+    genuine rows are recorded. The images go up as rgb8 or as a yuv420 wire
+    (`ops.pixel_format.upload_images`)."""
     for (batch_ids, base_images, level_sizes, inv_scales,
          initial_sizes) in dataloader.make_raw_iterator_for_all_images(batch_size):
         stacked = np.stack(base_images + [base_images[-1]] * (batch_size - len(base_images)))
-        yield batch_ids, uploader.upload(stacked), level_sizes, inv_scales, initial_sizes
+        yield (batch_ids, upload_images(uploader, stacked, pixel_format, logger), level_sizes,
+               inv_scales, initial_sizes)
 
 
 def _prefetched(items, depth: int):
@@ -623,14 +637,16 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     (os2d/engine/evaluate.py:21-174; os2d_tpu/engine/evaluate.py:1003-1421).
 
     The model owns its weights (an `Os2dModel`). Two paths, as in JAX:
-    - fused: batches of one size bucket are uploaded as uint8
-      (`cfg.tpu.upload_pixel_format` "auto" and "rgb8" both mean rgb8) and
-      detected with TTA views when cfg.eval.class_image_augmentation is set,
-      through the class prescreen when cfg.eval.nms_score_threshold is
-      finite. A producer thread stacks and uploads batch i+1 while batch i
-      computes (cfg.tpu.eval_prefetch_depth batches ahead, default 1; 0 runs
-      the serial loop; uploads as in utils/upload.py). The host unpacks
-      batch i after batch i+1 was issued.
+    - fused: batches of one size bucket are uploaded as uint8 RGB, or with
+      cfg.tpu.upload_pixel_format "yuv420" as JAX's 4:2:0 wire (1.5 B/px,
+      lossy in chroma; decoded on the device as the dispatch starts; a batch
+      of odd H or W goes up as rgb8), and detected with TTA views when
+      cfg.eval.class_image_augmentation is set, through the class prescreen
+      when cfg.eval.nms_score_threshold is finite. A producer thread stacks
+      and uploads batch i+1 while batch i computes
+      (cfg.tpu.eval_prefetch_depth batches ahead, default 1; 0 runs the
+      serial loop; uploads as in utils/upload.py). The host unpacks batch i
+      after batch i+1 was issued.
     - chunked per level: with cfg.tpu.device_side_pyramid=False the pyramid
       is built on the host (the dataloader's `make_iterator_for_all_images`);
       with cfg.visualization.eval.show_class_heatmaps, which needs the raw
@@ -653,11 +669,12 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
     prescreen does not run. cfg.visualization.eval's show_detections,
     show_gt_boxes and show_class_heatmaps draw their figures under
     <cfg.output.path>/viz_<dataset> (os2d_tpu/engine/evaluate.py:1058-1118).
-    The yuv420 upload wire is not ported and raises NotImplementedError.
+    upload_pixel_format "auto" means rgb8 here, where JAX's means yuv420 on
+    an accelerator (os2d_tpu/engine/evaluate.py:1172-1175): the wire halves
+    uploads over a TPU's host tunnel, which a card's host link does not
+    need; both packages upload rgb8 on the CPU.
     """
-    unported = _unported_eval_options(cfg)
-    if unported:
-        raise NotImplementedError("not ported to os2d_torch: " + "; ".join(unported))
+    pixel_format = resolve_pixel_format(cfg.tpu.upload_pixel_format)
     logger = logging.getLogger(f"{logger_prefix}.evaluate")
     dataset_name = dataloader.get_name()
     logger.info(f"Starting evaluation on {dataset_name}")
@@ -795,7 +812,7 @@ def evaluate(dataloader, model, cfg, criterion=None, print_per_class_results=Fal
         uploader = uploader_for(model.device)
         pending = None
         for batch_ids, images, level_sizes, inv_scales, initial_sizes in _prefetched(
-                _uploaded_batches(dataloader, batch_size, uploader),
+                _uploaded_batches(dataloader, batch_size, uploader, pixel_format, logger),
                 int(cfg.tpu.eval_prefetch_depth)):
             if criterion is None:
                 packed = detect(images, class_head, level_sizes, inv_scales[0], img_norm,

@@ -21,11 +21,16 @@ dropped; a key the port needs and the file lacks raises KeyError. With
 whose keys are `<bn>.weight` and `<bn>.bias` only (the reference's GN
 backbones and the converted caffe2 GroupNorm dumps of `models/converters.py`).
 
-`load_checkpoint_file` reads a file through the reference's cascade and two
+`load_checkpoint_file` reads a file through the reference's cascade and the
 formats of this repo: the port's own `.pth` (`utils.logger.checkpoint_model`,
-told apart by its keys) and the JAX package's pickled `.pkl`
-(`os2d_tpu/utils/logger.py:129-204`), read without importing what it
-pickles beyond numpy (`load_jax_checkpoint`).
+told apart by its keys; with either backend, a "dcp_dir" stub read through
+torch.distributed.checkpoint), the JAX package's pickled `.pkl`
+(`os2d_tpu/utils/logger.py:129-204`) and the torchvision-named backbone that
+either package's ImageNet pretrainer exports (`backbone_torchvision.pkl`,
+`pretrain/train_imagenet.py`), the two `.pkl`s read without importing what
+they pickle beyond numpy (`load_numpy_pickle`). A JAX checkpoint of the
+orbax backend ("orbax_dir": an OCDBT tree that only orbax reads) is refused
+with the way to convert it.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import pickle
 import numpy as np
 import torch
 
+from ..utils.logger import restore_dcp_stub
 from .converters import convert_any_backbone
 from .from_jax import state_dict_from_jax
 from .resnet import ResNetC4
@@ -195,21 +201,34 @@ def _check_numpy_tree(tree, where="net"):
             _check_numpy_tree(v, f"{where}[{i}]")
 
 
-def load_jax_checkpoint(path):
+def load_numpy_pickle(path):
+    """A pickle of numpy arrays in containers, loaded with only numpy's array
+    types and OrderedDict imported: any other global loads as an inert
+    `_Unloaded` placeholder, so no other module is imported and no callable
+    runs."""
+    with open(path, "rb") as f:
+        return _NumpyUnpickler(f).load()
+
+
+def load_jax_checkpoint(path, payload=None):
     """The payload of a JAX package checkpoint (`os2d_tpu.utils.logger.
     checkpoint_model`, pickle backend): {"net": params of numpy arrays,
-    "optimizer", "i_iter", "full_log", ...}. Only numpy's array types and
-    OrderedDict are imported; anything else (the optax state classes of
-    "optimizer") loads as an inert placeholder, and "net" must hold none. A
-    payload of the orbax backend raises NotImplementedError."""
-    with open(path, "rb") as f:
-        payload = _NumpyUnpickler(f).load()
+    "optimizer", "i_iter", "full_log", ...}, read by `load_numpy_pickle`
+    (or taken as `payload`, what it already read): the optax state classes
+    of "optimizer" load as placeholders, and "net" must hold none. A payload
+    of the orbax backend raises NotImplementedError, which says how to
+    convert it."""
+    if payload is None:
+        payload = load_numpy_pickle(path)
     if not isinstance(payload, dict) or "net" not in payload:
         raise ValueError(f"{path} is not a checkpoint of os2d_tpu.utils.logger")
     if payload.get("orbax_dir"):
         raise NotImplementedError(
-            f"{path} stores its trees with orbax ({payload['orbax_dir']}); orbax "
-            "checkpoints are not ported")
+            f"{path} stores its trees with orbax in {payload['orbax_dir']}, which os2d_torch "
+            "does not read. Convert it under the JAX package: payload = "
+            "os2d_tpu.utils.logger.load_checkpoint(path), then os2d_tpu.utils.logger."
+            "checkpoint_model(payload['net'], payload['optimizer'], out_dir, ..., "
+            "backend='pickle'), and load that .pkl")
     _check_numpy_tree(payload["net"])
     return payload
 
@@ -217,12 +236,13 @@ def load_jax_checkpoint(path):
 def load_checkpoint_file(path, config, model=None):
     """Read a checkpoint file -> (state_dict, optimizer state or None)
     (os2d_tpu/models/os2d.py:284-331). The cascade:
-      0. a `.pkl` of the JAX package: its "net" through
+      0. a `.pkl`: a JAX package checkpoint, its "net" through
          `from_jax.state_dict_from_jax` (no optimizer state: optax's has no
-         counterpart here);
+         counterpart here); or, without "net", a pretrainer's
+         torchvision-named backbone export, as in step 4;
       1. a dict with "net" [+ "optimizer"]: the port's own checkpoint
-         (`utils.logger.checkpoint_model`) as it is, or a reference one
-         through `import_os2d_torch_checkpoint`;
+         (`utils.logger.checkpoint_model`, either backend) as it is, or a
+         reference one through `import_os2d_torch_checkpoint`;
       2. weakalign ("state_dict" with FeatureExtraction*);
       3. a full reference state_dict, possibly nested in "state_dict" or
          "model";
@@ -235,8 +255,13 @@ def load_checkpoint_file(path, config, model=None):
     checkpoints and backbones hold tensors, numbers, strings and containers.
     """
     if str(path).endswith(".pkl"):
-        return state_dict_from_jax(load_jax_checkpoint(path)["net"]), None
-    checkpoint = torch.load(path, map_location="cpu", weights_only=True)
+        payload = load_numpy_pickle(path)
+        if isinstance(payload, dict) and "net" in payload:
+            return state_dict_from_jax(load_jax_checkpoint(path, payload)["net"]), None
+        _check_numpy_tree(payload, "the backbone")
+        backbone = resnet_state_dict(convert_any_backbone(payload), config)
+        return _with_backbone(_current_state_dict(model, config), backbone, config), None
+    checkpoint = restore_dcp_stub(torch.load(path, map_location="cpu", weights_only=True), path)
     if isinstance(checkpoint, dict) and "net" in checkpoint:
         net = checkpoint["net"]
         if any(k.startswith(PORT_PREFIXES) for k in net):

@@ -5,7 +5,9 @@ Convolutions go from HWIO to OIHW; BatchNorm's scale/bias/mean/var become
 weight/bias/running_mean/running_var, and a GroupNorm slot's scale/bias
 (no running statistics) weight/bias; the TransformationNet's conv biases map
 across; `label_backbone` is read when present (os2d_tpu/models/os2d.py:6-16).
-Folded params (`os2d_tpu.models.os2d.fold_inference_params`) convert too:
+The ImageNet pretrainer's classifier params convert with
+`classifier_state_dict_from_jax`. Folded params
+(`os2d_tpu.models.os2d.fold_inference_params`) convert too:
 a `{"folded_bias": b}` slot becomes `<bn>.folded_bias` and a TransformNet
 without "bn*" keys has no bn entries, which is the state_dict of
 `os2d_torch.models.os2d.fold_inference_params(model)`.
@@ -45,11 +47,12 @@ def _bn(sd, prefix: str, p) -> None:
 
 
 def resnet_state_dict_from_jax(params, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """ResNet-C4 params {conv1, bn1, layer1..3: [block dicts]} -> ResNetC4 keys."""
+    """ResNet-C4 params {conv1, bn1, layer1..3: [block dicts]} -> ResNetC4
+    keys; a classifier's layer4, when present, maps alike."""
     sd = {prefix + "conv1.weight": _oihw(params["conv1"])}
     _bn(sd, prefix + "bn1", params["bn1"])
-    for layer in ("layer1", "layer2", "layer3"):
-        for bi, block in enumerate(params[layer]):
+    for layer in ("layer1", "layer2", "layer3", "layer4"):
+        for bi, block in enumerate(params.get(layer, ())):
             base = f"{prefix}{layer}.{bi}."
             for ci in (1, 2, 3):
                 sd[base + f"conv{ci}.weight"] = _oihw(block[f"conv{ci}"])
@@ -57,6 +60,16 @@ def resnet_state_dict_from_jax(params, prefix: str = "") -> Dict[str, torch.Tens
             if "downsample_conv" in block:
                 sd[base + "downsample.0.weight"] = _oihw(block["downsample_conv"])
                 _bn(sd, base + "downsample.1", block["downsample_bn"])
+    return sd
+
+
+def classifier_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """Full classifier params (`os2d_tpu.models.resnet.
+    init_resnet_classifier_params`: the C4 layers, layer4 and fc {w [2048,
+    num_classes], b}) -> `ResNetClassifier` keys, fc's weight transposed."""
+    sd = resnet_state_dict_from_jax(params)
+    sd["fc.weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(params["fc"]["w"]).T))
+    sd["fc.bias"] = _vec(params["fc"]["b"])
     return sd
 
 

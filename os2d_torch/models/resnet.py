@@ -22,6 +22,13 @@ statistics of the activations over (H, W, C/32) in fp32, eps 1e-5, a weight
 and a bias (state_dict keys `<bn>.weight`, `<bn>.bias`, no running stats),
 fp32 output in every compute dtype. It depends on the activations and does
 not fold.
+
+`ResNetClassifier` is the full torchvision ResNet50/101 (layer4 at stride 2,
+global average pooling, fc) that the ImageNet pretrainer trains
+(os2d_tpu/models/resnet.py:167-266), with BatchNorm in train mode as JAX
+defines it (`batch_norm_train`: F.batch_norm in one process, the global
+batch's statistics over a mesh); its state_dict has torchvision's keys, so
+its trunk loads into `ResNetC4` as it is.
 """
 
 from __future__ import annotations
@@ -33,10 +40,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
+
 # number of bottleneck blocks per layer, through layer3 (C4)
 RESNET_DEPTHS = {
     "resnet50": (3, 4, 6),
     "resnet101": (3, 4, 23),
+}
+
+# full classifier depths (layer4 included) for ImageNet pretraining
+RESNET_FULL_DEPTHS = {
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
 }
 
 BN_EPS = 1e-5
@@ -89,7 +104,9 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x):
         scale = self.folding_factor()
         shift = self.bias - self.running_mean * scale
-        return x.float() * scale[:, None, None] + shift[:, None, None]
+        # fp32 for fp32 and bf16 inputs (fp64 stays fp64)
+        return (x.to(torch.promote_types(x.dtype, torch.float32)) * scale[:, None, None]
+                + shift[:, None, None])
 
 
 class GroupNorm2d(nn.Module):
@@ -239,3 +256,112 @@ def fold_batchnorm_c4(backbone: ResNetC4) -> ResNetC4:
         if block.downsample is not None:
             block.downsample[1] = _fold_conv_bn(block.downsample[0], block.downsample[1])
     return folded
+
+
+def batch_norm_train(x, bn: FrozenBatchNorm2d, mesh=None, momentum: float = 0.1):
+    """BatchNorm in train mode as the JAX package defines it
+    (os2d_tpu/models/resnet.py:178-192) on NCHW x: in fp32 (whatever the
+    convolutions' dtype), with the batch's mean and biased variance, and new
+    running statistics by torch's momentum rule, run = (1 - m) * run +
+    m * batch, from the unbiased variance. Without a mesh that is
+    F.batch_norm in training mode (one fused kernel on the card), run on
+    copies of the running statistics. Over a `mesh` the statistics are the
+    global batch's, as a jnp.mean over a batch sharded on a mesh computes
+    them: two passes, each pass's sum summed over the ranks
+    (differentiably), with every rank holding an equal share of rows.
+    Returns (y, new running mean, new running var), the last two detached.
+    An fp64 input computes in fp64."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if mesh is None:
+        new_mean, new_var = (t.detach().to(xf.dtype, copy=True)
+                             for t in (bn.running_mean, bn.running_var))
+        y = F.batch_norm(xf, new_mean, new_var, bn.weight.to(xf.dtype), bn.bias.to(xf.dtype),
+                         training=True, momentum=momentum, eps=BN_EPS)
+        return y, new_mean, new_var
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    total, n = all_reduce_sum(mesh, xf.sum(dim=(0, 2, 3))), n * mesh.size
+    mean = total / n
+    centered = xf - mean[:, None, None]
+    var = all_reduce_sum(mesh, centered.square().sum(dim=(0, 2, 3))) / n
+    with torch.no_grad():
+        unbiased = var * n / max(n - 1, 1)
+        new_mean = (1 - momentum) * bn.running_mean + momentum * mean
+        new_var = (1 - momentum) * bn.running_var + momentum * unbiased
+    inv = torch.rsqrt(var + BN_EPS)
+    y = centered * inv[:, None, None] * bn.weight[:, None, None] + bn.bias[:, None, None]
+    return y, new_mean, new_var
+
+
+class Linear(nn.Module):
+    """y = x @ weight.T + bias, weight [out, in] as torchvision's fc; its
+    parent initializes it."""
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, device=device))
+        self.bias = nn.Parameter(torch.empty(cout, device=device))
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class ResNetClassifier(ResNetC4):
+    """The full ResNet classifier (os2d_tpu/models/resnet.py:167-266):
+    ResNetC4's stem and layer1..3, layer4 (width 512, 2048 channels, stride
+    2 on its first block), global average pooling and an fc layer. Frozen
+    BatchNorm only (the pretrainer's; no GroupNorm). All four tensors of
+    each BatchNorm are parameters, as they are leaves of JAX's params: the
+    pretrainer's optimizer updates the running statistics too."""
+
+    def __init__(self, arch: str = "resnet101", num_classes: int = 1000, device=None,
+                 compute_dtype=torch.float32):
+        super().__init__(arch, device, compute_dtype)
+        cin = 1024
+        blocks = []
+        for bi in range(RESNET_FULL_DEPTHS[arch][3]):
+            blocks.append(Bottleneck(cin, 512, 2 if bi == 0 else 1, device))
+            cin = 2048
+        self.layer4 = nn.Sequential(*blocks)
+        self.fc = Linear(2048, num_classes, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """`init_resnet_classifier_params`' distributions: He-normal
+        convolutions, identity BatchNorms, fc uniform in +-1/sqrt(2048) and
+        a zero bias (the numbers differ from JAX's)."""
+        super().reset_parameters(generator)
+        bound = 1.0 / math.sqrt(2048)
+        self.fc.weight.uniform_(-bound, bound, generator=generator)
+        self.fc.bias.zero_()
+
+    def forward(self, images_nhwc, train_bn: bool = False, mesh=None, bn_momentum: float = 0.1,
+                compute_dtype=None):
+        """images [N, H, W, 3] (normalized) -> (logits [N, num_classes] in
+        fp32, new running statistics), as `resnet_classifier_forward`: the
+        convolutions in `compute_dtype` (default the module's), each
+        BatchNorm in fp32. With train_bn the BatchNorms normalize with batch
+        statistics (`batch_norm_train`, global over `mesh`), and the second
+        result maps each BatchNorm's module name to its (new running mean,
+        new running var); without, they use their running statistics and it
+        is empty. The module's tensors are not changed."""
+        dtype = compute_dtype or self.compute_dtype
+        stats = {}
+
+        def norm_train(x, name):
+            y, mean, var = batch_norm_train(x, self.get_submodule(name), mesh, bn_momentum)
+            stats[name] = (mean, var)
+            return y
+
+        norm = norm_train if train_bn else (lambda x, name: self.get_submodule(name)(x))
+        x = F.relu(norm(self.conv1(images_nhwc.permute(0, 3, 1, 2), dtype), "bn1"))
+        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        for layer in ("layer1", "layer2", "layer3", "layer4"):
+            for i, block in enumerate(getattr(self, layer)):
+                base = f"{layer}.{i}."
+                out = F.relu(norm(block.conv1(x, dtype), base + "bn1"))
+                out = F.relu(norm(block.conv2(out, dtype), base + "bn2"))
+                out = norm(block.conv3(out, dtype), base + "bn3")
+                identity = x if block.downsample is None else norm(
+                    block.downsample[0](x, dtype), base + "downsample.1")
+                x = F.relu(out + identity)
+        return self.fc(x.mean(dim=(2, 3))), stats

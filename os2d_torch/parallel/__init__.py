@@ -5,6 +5,7 @@ from .mesh import (
     Mesh,
     all_gather_cat,
     all_gather_chunked,
+    all_reduce_sum,
     all_reduce_sum_,
     gather_rows,
     init_distributed,

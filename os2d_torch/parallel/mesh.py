@@ -75,6 +75,12 @@ def init_distributed(backend: Optional[str] = None, device=None,
     return device
 
 
+def launched_world_size() -> int:
+    """The number of processes torchrun started for this job (WORLD_SIZE),
+    1 for a process started on its own."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def make_mesh(n_devices: Optional[int] = None, device=None) -> Optional[Mesh]:
     """A mesh over the first `n_devices` ranks of the initialized group (all
     of them by default), as `os2d_tpu.parallel.make_mesh` takes the first
@@ -156,6 +162,31 @@ class _GatherRows(torch.autograd.Function):
 def gather_rows(mesh: Mesh, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Differentiable all_gather_cat (see _GatherRows)."""
     return _GatherRows.apply(x, mesh, dim)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of `x` over the ranks. Every rank uses the sum, so the
+    gradient of each rank's `x` is the sum over the ranks of the incoming
+    gradients: the backward is the same all_reduce (SyncBatchNorm's rule)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.mesh.group)
+        return grad, None
+
+
+def all_reduce_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable sum of `x` over the ranks (see _AllReduceSum): the
+    pretrainer's global BatchNorm statistics."""
+    return _AllReduceSum.apply(x, mesh)
 
 
 def all_reduce_sum_(mesh: Mesh, tensors: List[torch.Tensor]) -> None:

@@ -3,10 +3,15 @@
 Counterpart of `os2d_tpu/utils/logger.py` (the reference's
 os2d/utils/logger.py:12-160): hierarchical loggers, in-memory metric series
 NaN-padded to equal length and pickled to train_log.pkl, and model
-checkpoints written with torch.save in the reference's {"net", "optimizer",
-...} layout (the JAX package's orbax backend has no counterpart here).
-In a run of several processes only rank 0 writes files (the log file,
-train_log.pkl, checkpoints), as only the JAX package's primary host does.
+checkpoints in the reference's {"net", "optimizer", ...} layout. The
+checkpoint backend is cfg.tpu.checkpoint_backend's, as in JAX: "pickle"
+writes one torch.save file; "orbax", the JAX package's sibling-directory
+backend, writes the trees with torch.distributed.checkpoint into
+checkpoint_<name>.dcp/ beside a small torch.save stub that names it under
+"dcp_dir" (JAX's stub says "orbax_dir", so neither package mistakes the
+other's). In a run of several processes only rank 0 writes files (the log
+file, train_log.pkl, checkpoints), as only the JAX package's primary host
+does.
 """
 
 from __future__ import annotations
@@ -18,8 +23,11 @@ import os
 import pickle
 import random
 import re
+import shutil
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -105,15 +113,26 @@ def log_meters(full_log, t_start, i_iter, output_path, meters_running=None,
     return full_log
 
 
+CHECKPOINT_BACKENDS = ("pickle", "orbax")
+
+
 def checkpoint_model(model, optimizer, output_path, i_iter=None, model_name=None,
-                     extra_fields=None, full_log=None):
+                     extra_fields=None, full_log=None, backend="pickle"):
     """Save {"net": model.state_dict(), "optimizer": optimizer.state_dict(),
-    "i_iter", "full_log", **extra} with torch.save (logger.py:137-160) to
+    "i_iter", "full_log", **extra} (logger.py:137-160) to
     checkpoint_<model_name>.pth or checkpoint_iter_<i_iter>.pth; returns the
     path. The payload carries the iteration and the metric log, so training
-    resumes exactly. In a multi-process run only rank 0 writes (every rank
-    holds the same weights); the others return the path unwritten, so a
-    reload needs storage that every rank sees."""
+    resumes exactly. backend="pickle" puts everything in that torch.save
+    file; backend="orbax" writes "net" and "optimizer" with
+    torch.distributed.checkpoint into the sibling directory <name>.dcp
+    (replaced if it exists) and leaves them None in the stub, which names the
+    directory under "dcp_dir", relative to the stub's own
+    (os2d_tpu/utils/logger.py:128-200). In a multi-process run only rank 0
+    writes (every rank holds the same weights); the others return the path
+    unwritten, so a reload needs storage that every rank sees."""
+    if backend not in CHECKPOINT_BACKENDS:
+        raise ValueError(f"unknown checkpoint backend {backend!r}: expected one of "
+                         f"{CHECKPOINT_BACKENDS}")
     name = f"checkpoint_{model_name}" if model_name is not None else f"checkpoint_iter_{i_iter}"
     path = os.path.join(output_path, name + ".pth")
     if not primary_host():
@@ -125,8 +144,20 @@ def checkpoint_model(model, optimizer, output_path, i_iter=None, model_name=None
         "net": model.state_dict(),
         "optimizer": optimizer.state_dict() if optimizer is not None else None,
     }
-    payload.update(extra_fields or {})
     try:
+        if backend == "orbax":
+            import torch.distributed.checkpoint as dcp
+
+            tree_dir = os.path.join(output_path, name + ".dcp")
+            if os.path.isdir(tree_dir):
+                shutil.rmtree(tree_dir)
+            # one writer whether or not a process group is up: no collective
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "torch.distributed is disabled")
+                dcp.save({"net": payload["net"], "optimizer": payload["optimizer"] or {}},
+                         checkpoint_id=tree_dir, no_dist=True)
+            payload.update(net=None, optimizer=None, dcp_dir=name + ".dcp")
+        payload.update(extra_fields or {})
         torch.save(payload, path)
         logging.getLogger("OS2D").info(f"Saved checkpoint to {path}")
     except OSError as e:
@@ -134,9 +165,40 @@ def checkpoint_model(model, optimizer, output_path, i_iter=None, model_name=None
     return path
 
 
+def _load_dcp_tree(tree_dir):
+    """The nested dict that `checkpoint_model(backend="orbax")` wrote with
+    torch.distributed.checkpoint into `tree_dir`, read whole on this process
+    (no template, no collective) through DCP's converter to a torch.save
+    file in a temporary directory; tensors on the CPU."""
+    from torch.distributed.checkpoint.format_utils import dcp_to_torch_save
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tree.pth")
+        dcp_to_torch_save(tree_dir, path)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_dcp_stub(payload, stub_path):
+    """A loaded checkpoint payload with "dcp_dir" -> the payload with its
+    "net" and "optimizer" read from that directory (relative to the stub's
+    directory); any other payload is returned as it is."""
+    if not (isinstance(payload, dict) and payload.get("dcp_dir")):
+        return payload
+    tree = _load_dcp_tree(os.path.join(os.path.dirname(os.path.abspath(stub_path)),
+                                      payload["dcp_dir"]))
+    optimizer = tree.get("optimizer") or None
+    if optimizer is not None and "state" in optimizer:
+        # the tree's keys are strings; torch.optim's state is keyed by the
+        # parameters' int indices, and load_state_dict skips any other key
+        optimizer = dict(optimizer, state={int(k): v for k, v in optimizer["state"].items()})
+    return dict(payload, net=tree["net"], optimizer=optimizer)
+
+
 def load_checkpoint(path, map_location="cpu"):
-    """A checkpoint of `checkpoint_model` (tensors, numbers and lists only)."""
-    return torch.load(path, map_location=map_location, weights_only=True)
+    """A checkpoint of `checkpoint_model` (tensors, numbers and lists only),
+    either backend."""
+    return restore_dcp_stub(torch.load(path, map_location=map_location, weights_only=True),
+                            path)
 
 
 # Log mining (os2d/utils/logger.py:163-225; os2d_tpu/utils/logger.py:207-249),

@@ -9,8 +9,10 @@ both packages; the JAX params, converted with `state_dict_from_jax`, must
 equal the port model's state_dict() bit for bit, since the import is copies
 only. Branches that keep weights the file lacks (weakalign, a backbone
 alone) start both packages from the same params. Then the converters on
-synthetic dicts, the errors, the port's own `.pth`, and a JAX `.pkl` with an
-optax state that loads in a process which never imports jax or optax.
+synthetic dicts, the errors, the port's own `.pth` of both backends (the
+"orbax" one through torch.distributed.checkpoint, bit-equal), a JAX `.pkl`
+with an optax state that loads in a process which never imports jax or
+optax, and a JAX orbax stub refused with the way to convert it.
 """
 
 import copy
@@ -366,5 +368,60 @@ def test_jax_pkl_imports_and_runs_nothing_foreign(tmp_path, monkeypatch):
         load_jax_checkpoint(str(path))
     assert not (tmp_path / "ran.txt").exists()
     path.write_bytes(pickle.dumps({"net": None, "optimizer": None, "orbax_dir": "/x.orbax"}))
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(NotImplementedError, match="orbax") as err:
         load_checkpoint_file(str(path), Os2dConfig())
+    # the message says how to convert the tree
+    assert "backend='pickle'" in str(err.value)
+    assert "os2d_tpu.utils.logger.load_checkpoint" in str(err.value)
+
+
+def test_dcp_backend_round_trips(tmp_path):
+    """checkpoint_model(backend="orbax"): the trees go through
+    torch.distributed.checkpoint into checkpoint_<name>.dcp/ beside a stub
+    that names it under "dcp_dir"; load_checkpoint and load_checkpoint_file
+    restore the weights and the optimizer state bit-equal, without a
+    process group, and a second save replaces the directory."""
+    from os2d_torch.utils.logger import load_checkpoint
+
+    model = Os2dModel(Os2dConfig(), device="cpu", seed=5).train_mode(True)
+    params = list(model.parameters())[:6]
+    optimizer = torch.optim.SGD(params, lr=0.1, momentum=0.9, weight_decay=1e-4)
+    for _ in range(2):
+        optimizer.zero_grad()
+        sum((p * p).sum() for p in params).backward()
+        optimizer.step()
+        path = checkpoint_model(model, optimizer, str(tmp_path), model_name="best",
+                                extra_fields={"criterion_value": 0.25}, full_log={"iter": [0]},
+                                backend="orbax")
+    assert sorted(os.listdir(tmp_path)) == ["checkpoint_best.dcp", "checkpoint_best.pth"]
+    stub = torch.load(path, weights_only=True)
+    assert stub["net"] is None and stub["optimizer"] is None
+    assert stub["dcp_dir"] == "checkpoint_best.dcp" and "orbax_dir" not in stub
+    payload = load_checkpoint(path)
+    assert payload["criterion_value"] == 0.25 and payload["full_log"] == {"iter": [0]}
+    _assert_state_equal(payload["net"], model.state_dict())
+    want = optimizer.state_dict()
+    assert payload["optimizer"]["param_groups"] == want["param_groups"]
+    assert sorted(payload["optimizer"]["state"]) == sorted(want["state"])
+    for k, v in want["state"].items():
+        assert torch.equal(payload["optimizer"]["state"][k]["momentum_buffer"],
+                           v["momentum_buffer"])
+    # a fresh optimizer takes the restored state as the saved one
+    restored = torch.optim.SGD(params, lr=0.1, momentum=0.9, weight_decay=1e-4)
+    restored.load_state_dict(payload["optimizer"])
+    assert len(restored.state) == len(optimizer.state)
+
+    loaded = Os2dModel(Os2dConfig(), device="cpu", seed=6)
+    sd, opt = load_checkpoint_file(path, Os2dConfig(), loaded)
+    loaded.load_state_dict(sd)
+    _assert_state_equal(loaded.state_dict(), model.state_dict())
+    assert opt["param_groups"] == want["param_groups"]
+    # moved together with its directory, the stub still finds it
+    moved = tmp_path / "moved"
+    moved.mkdir()
+    for name in ("checkpoint_best.dcp", "checkpoint_best.pth"):
+        os.rename(tmp_path / name, moved / name)
+    _assert_state_equal(load_checkpoint(str(moved / "checkpoint_best.pth"))["net"],
+                        model.state_dict())
+    with pytest.raises(ValueError, match="checkpoint backend"):
+        checkpoint_model(model, optimizer, str(tmp_path), i_iter=1, backend="tensorstore")

@@ -169,6 +169,16 @@ def test_dp_ranks_hold_equal_weights(runs):
     assert len(digests) == 1
 
 
+def test_dcp_checkpoint_under_a_process_group(runs):
+    """The "orbax" backend (torch.distributed.checkpoint) with a gloo group
+    up: rank 0 alone writes one stub and one tree, with no collective, and
+    every rank restores the trained weights and optimizer state bit-equal."""
+    assert sorted(n for n in os.listdir(runs["dirs"][2]) if "dcp" in n) == [
+        "checkpoint_dcp.dcp", "checkpoint_dcp.pth"]
+    for r in runs[2]:
+        assert r["train"]["dcp"] == {"digest": r["train"]["digest"], "optimizer_equal": True}
+
+
 def test_dp_step_losses_match_jax(runs):
     for r in runs[2]:
         got = r["train"]["metrics"]

@@ -166,14 +166,23 @@ def test_evaluate_matches_jax_with_tta_and_prescreen(loaders, tmp_path):
 
 
 def test_evaluate_rejects_unported_options(loaders):
+    """Every option of the JAX eval path runs (the visualisation flags:
+    tests/test_torch_visualization.py): upload_pixel_format "yuv420" finds
+    the planted patches as rgb8 does (tests/test_torch_pixel_format.py holds
+    it to JAX); a format that neither package knows raises."""
     _, loader = loaders
     model = Os2dModel(Os2dConfig(), device="cpu")
-    # the visualisation flags run (tests/test_torch_visualization.py)
-    for key, value in (("tpu.upload_pixel_format", "yuv420"),):
+    maps = {}
+    for value in ("rgb8", "yuv420"):
         cfg = get_default_cfg()
-        cfg.merge_from_list([key, str(value)])
-        with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
-            teval.evaluate(loader, model, cfg)
+        cfg.eval.mAP_iou_thresholds = [0.5]
+        cfg.merge_from_list(["tpu.upload_pixel_format", value])
+        maps[value] = teval.evaluate(loader, model, cfg)["mAP@0.50"]
+    assert maps == {"rgb8": 1.0, "yuv420": 1.0}
+    cfg = get_default_cfg()
+    cfg.merge_from_list(["tpu.upload_pixel_format", "yuv444"])
+    with pytest.raises(ValueError, match="upload_pixel_format"):
+        teval.evaluate(loader, model, cfg)
     # a mesh runs now; its size rules raise before any collective
     from os2d_torch.parallel import Mesh
 

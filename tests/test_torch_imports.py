@@ -5,7 +5,8 @@
   and the dataset scales' twins among them) imports jax, jaxlib, optax,
   orbax or os2d_tpu; the HTTP app imports nothing outside the port and the
   standard library but fastapi. Every one of them but chip_smoke.py and the
-  app imports here.
+  app imports here; the pretrainer, the yuv420 wire and the checkpoint
+  backends load none of those modules in a fresh process either.
 - The kernel wrappers (the fp32 gather, the bf16 hat resample, the int8
   hat resample and the resample's backward) have no `except` that could turn
   a failed kernel into a silent CPU fallback; every CUDA source has one.
@@ -102,3 +103,30 @@ def test_model_defaults_to_cuda():
     assert Os2dModel(device="cpu").device.type == "cpu"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+NEW_MODULES = ("os2d_torch.pretrain.train_imagenet", "os2d_torch.ops.pixel_format",
+               "os2d_torch.utils.logger", "os2d_torch.models.checkpoint")
+LOADED_WITHOUT_JAX = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+assert not bad, bad
+"""
+
+
+def test_pretrainer_wire_and_checkpoints_load_no_jax():
+    """The pretrainer, the yuv420 wire and the checkpoint backends (with
+    torch.distributed.checkpoint) import in a fresh process without loading
+    jax, jaxlib, optax, orbax or os2d_tpu."""
+    import os
+    import subprocess
+    import sys
+
+    assert {ROOT / (m.replace(".", "/") + ".py") for m in NEW_MODULES} <= set(PORT_FILES)
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", LOADED_WITHOUT_JAX.format(forbidden=set(FORBIDDEN)),
+         *NEW_MODULES], env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

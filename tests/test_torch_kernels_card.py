@@ -32,6 +32,11 @@ shape (B=4, C=16, 38x38, T=121 of 225) on uniform, near-identity, exact
 identity and collapsed inputs, integer coordinates and the borders,
 t_full 128 and t_full == T, B*C above 65535, and two calls in a row.
 
+The yuv420 wire (ops/pixel_format.py): its decode on the card equals the
+CPU's; an eval dispatch on a wire uploaded to the card launches the hat
+kernel and detects as on the CPU. The pretrainer's step (pretrain/, cuDNN
+and cuBLAS, no hand kernel) on the card against the CPU.
+
 Two kinds of inputs bracket the kernels' memory traffic: "uniform" px/py
 spread over the whole map (almost no corr sector is used twice), and
 "near_identity" px/py, the anchor's position plus the template offset of
@@ -669,3 +674,113 @@ def test_bf16_fold_eval_repeats_to_the_bit(cuda_gen):
     first = ev.detect_images(images, head, sizes, inv, norm)
     second = ev.detect_images(images, head, sizes, inv, norm)
     assert first[..., 5].any() and torch.equal(first, second)
+
+
+def test_yuv420_decode_on_the_card_matches_the_cpu(cuda_gen):
+    """The wire's decode on the card: the float RGB equal to the CPU's (both
+    divide by K_G as IEEE fp32 does; held within 1e-4, as against JAX) and
+    the uint8 RGB equal."""
+    import numpy as np
+
+    from os2d_torch.ops.pixel_format import (
+        PackedYuv420,
+        decode_wire_to_u8,
+        rgb_to_yuv420,
+        yuv420_to_rgb_f32,
+    )
+
+    img = np.random.RandomState(0).randint(0, 256, (2, 960, 1280, 3), np.uint8)
+    packed = rgb_to_yuv420(img)
+    flat_cpu = torch.from_numpy(packed.data)
+    flat_card = flat_cpu.cuda()
+    got = yuv420_to_rgb_f32(flat_card, packed.shape)
+    want = yuv420_to_rgb_f32(flat_cpu, packed.shape)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    assert torch.equal(decode_wire_to_u8(PackedYuv420(flat_card, packed.shape)).cpu(),
+                       decode_wire_to_u8(PackedYuv420(flat_cpu, packed.shape)))
+
+
+def test_yuv420_eval_dispatch_on_the_card_matches_the_cpu(cuda_gen):
+    """Evaluator.detect_images on a planted scene uploaded as the yuv420
+    wire: the hat kernel once per dispatch (one level, one chunk), and the
+    packed detections of the card within scores 1e-4, boxes 1e-2 px of the
+    CPU's on the planted patch's class, which tops at the patch."""
+    import numpy as np
+
+    from os2d_torch.config import get_default_cfg
+    from os2d_torch.engine.evaluate import Evaluator, unpack_detections
+    from os2d_torch.models import Os2dModel
+    from os2d_torch.ops.pixel_format import upload_images
+    from os2d_torch.structures.feature_map import FeatureMapSize
+    from os2d_torch.utils.upload import uploader_for
+
+    rng = np.random.RandomState(0)
+    patch = np.kron(rng.randint(0, 255, (30, 30, 3), np.uint8), np.ones((8, 8, 1), np.uint8))
+    scenes = rng.randint(0, 60, (2, 480, 640, 3), np.uint8)
+    scenes[:, 112:352, 48:288] = patch
+    card = Os2dModel()
+    cpu = Os2dModel(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    cfg = get_default_cfg()
+    cfg.tpu.eval_pre_top_k = 256
+    cfg.tpu.eval_top_k = 16
+    norm = {"mean": card.config.normalization_mean, "std": card.config.normalization_std}
+    mean, std = np.asarray(norm["mean"], np.float32), np.asarray(norm["std"], np.float32)
+    class_image = torch.from_numpy((patch / 255.0 - mean) / std).float()
+    out = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        ev = Evaluator(model, cfg)
+        head, _ = ev.build_class_heads([class_image])
+        images = upload_images(uploader_for(model.device), scenes, "yuv420")
+        before = hat_resample.KERNEL.launches
+        packed = ev.detect_images(images, head, [FeatureMapSize(w=640, h=480)], [(1.0, 1.0)],
+                                  norm)
+        out[name] = unpack_detections(packed)
+        if name == "card":
+            assert hat_resample.KERNEL.launches == before + 1
+    for i in range(2):
+        got_valid, want_valid = out["card"]["valid"][i, 0], out["cpu"]["valid"][i, 0]
+        got_box = out["card"]["boxes"][i, 0][got_valid][0]
+        want_box = out["cpu"]["boxes"][i, 0][want_valid][0]
+        assert abs(out["card"]["scores"][i, 0][got_valid][0]
+                   - out["cpu"]["scores"][i, 0][want_valid][0]) <= 1e-4
+        assert np.abs(got_box - want_box).max() <= 1e-2
+        assert np.abs(want_box - [48, 112, 288, 352]).max() <= 16
+
+
+def test_pretrain_step_on_the_card_matches_the_cpu(cuda_gen):
+    """One fp32 step of the pretrainer (ResNet50 classifier at 64x64, batch
+    4, 3 classes) on the card and on the CPU from the same weights: the loss
+    within rtol 1e-4, the update within 5% in norm and each running
+    statistic within rtol 1e-4 of its largest magnitude (the rounding noise
+    of this step, tests/test_torch_pretrain.py); then a bf16 step on the
+    card: a finite loss."""
+    import numpy as np
+
+    from os2d_torch.pretrain import train_imagenet as tpre
+
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randn(4, 64, 64, 3).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 3, 4))
+    start = tpre.init_classifier("resnet50", 3, "cpu", seed=0).state_dict()
+    states, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        model = tpre.init_classifier("resnet50", 3, device, seed=1)
+        model.load_state_dict(start)
+        chain = tpre.ChainSGD(model.parameters(), tpre.piecewise_constant_schedule(0.1, {}))
+        step = tpre.make_train_step(model, chain, torch.float32)
+        losses[device] = float(step(images.to(device), labels.to(device))["loss"])
+        states[device] = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-4)
+    weights = [k for k in start if "running" not in k]
+    num = sum((states["cuda"][k] - states["cpu"][k]).square().sum() for k in weights)
+    den = sum((states["cpu"][k] - start[k].double()).square().sum() for k in weights)
+    assert float((num / den).sqrt()) <= 5e-2
+    for k in start:
+        if "running" in k:
+            torch.testing.assert_close(states["cuda"][k], states["cpu"][k], rtol=0,
+                                       atol=1e-4 * float(states["cpu"][k].abs().max()))
+    model = tpre.init_classifier("resnet50", 3, "cuda", seed=0)
+    chain = tpre.ChainSGD(model.parameters(), tpre.piecewise_constant_schedule(0.1, {}))
+    loss = tpre.make_train_step(model, chain)(images.cuda(), labels.cuda())["loss"]
+    assert torch.isfinite(loss)

@@ -9,7 +9,8 @@ its batch-level generator from it; the port owns both generators, seeded
 from `seed`. With the global stream seeded as the port's seed, the two make
 the same calls in the same order, so the batches are equal: images, class
 images and padded GT exactly, across a shuffle. Also: the batch arrays on
-the device (`prepare_batch_arrays`) and the unported options refusing.
+the device (`prepare_batch_arrays`, rgb8 and the yuv420 wire) and the
+trainer's options, taken or refused as the JAX trainer's are.
 """
 
 import random
@@ -103,8 +104,18 @@ def test_prepared_arrays_match_jax(datasets):
     for key, value in want.items():
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(value), err_msg=key)
     assert got["images"].dtype == torch.uint8 and got["class_images"].dtype == torch.uint8
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        prepare_batch_arrays(batch, "cpu", pixel_format="yuv420")
+    # the yuv420 wire: JAX's bytes, every other array as with rgb8
+    # (tests/test_torch_pixel_format.py takes a train step on it)
+    want_yuv, _ = jax_prepare(batch, pixel_format="yuv420")
+    got_yuv, _ = prepare_batch_arrays(batch, "cpu", pixel_format="yuv420")
+    assert got_yuv["images"].shape == want_yuv["images"].shape == tuple(got["images"].shape)
+    np.testing.assert_array_equal(got_yuv["images"].data.numpy(),
+                                  np.asarray(want_yuv["images"].data))
+    for key in want:
+        if key != "images":
+            np.testing.assert_array_equal(got_yuv[key].numpy(), got[key].numpy(), err_msg=key)
+    with pytest.raises(ValueError, match="upload_pixel_format"):
+        prepare_batch_arrays(batch, "cpu", pixel_format="yuv444")
 
 
 def test_batch_prefetcher_pool_ordering_and_errors():
@@ -141,13 +152,23 @@ def test_batch_prefetcher_pool_ordering_and_errors():
 @pytest.mark.parametrize("key,value", [("tpu.upload_pixel_format", "yuv420"),
                                        ("tpu.checkpoint_backend", "orbax")])
 def test_trainval_loop_refuses_unported_options(key, value):
-    """The JAX trainer's options that are not ported raise before any work
-    (the visualisation flags run: tests/test_torch_visualization.py)."""
+    """Every option of the JAX trainer runs (the visualisation flags:
+    tests/test_torch_visualization.py; the wire's step:
+    tests/test_torch_pixel_format.py; the "orbax" backend's files:
+    tests/test_torch_checkpoint.py): trainval_loop takes the value and runs
+    to its final evaluation, here with no training and no eval loader. A
+    value that neither package knows raises before any work."""
     from os2d_torch.engine.train import trainval_loop
+    from os2d_torch.models import Os2dConfig, Os2dModel
 
     cfg = get_default_cfg()
-    cfg.merge_from_list([key, str(value)])
-    with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
+    cfg.merge_from_list([key, str(value), "train.do_training", "False"])
+    full_log, meters_eval = trainval_loop(None, Os2dModel(Os2dConfig(), device="cpu"), cfg,
+                                          None, None)
+    assert full_log == {} and meters_eval == {}
+    cfg = get_default_cfg()
+    cfg.merge_from_list([key, "tensorstore"])
+    with pytest.raises(ValueError, match=key.split(".")[-1]):
         trainval_loop(None, None, cfg, None, None)
     # a mesh runs now; a batch that does not divide over it raises first
     from os2d_torch.parallel import Mesh

@@ -28,6 +28,7 @@ from os2d_torch.engine.train import (
 )
 from os2d_torch.models import Os2dConfig, Os2dModel
 from os2d_torch.parallel import all_gather_cat, all_reduce_sum_, gather_rows, local_rows, make_mesh
+from os2d_torch.utils.logger import checkpoint_model, load_checkpoint
 
 THREADS = 2
 TRAIN_CONFIG = Os2dConfig(class_image_size=128, resample_precision="highest")
@@ -84,6 +85,7 @@ def train_steps(mesh, inputs):
     out = {"metrics": metrics, "digest": params_digest(model)}
     if mesh.rank == 0:
         torch.save(model.state_dict(), os.path.join(inputs["out_dir"], "dp_final.pth"))
+    out["dcp"] = dcp_round_trip(mesh, model, optimizer, cfg, inputs["out_dir"])
 
     arrays, c_pad = prepare_batch_arrays(inputs["batches"][0], "cpu")
     images = arrays["images"].float()
@@ -96,6 +98,26 @@ def train_steps(mesh, inputs):
     out["nan_grad_norm"] = meters["grad_norm"]
     out["nan_digest"] = params_digest(model)  # the update was skipped
     return out
+
+
+def dcp_round_trip(mesh, model, optimizer, cfg, out_dir):
+    """checkpoint_model(backend="orbax") with the group up: every rank
+    calls it and rank 0 alone writes; after a barrier every rank restores
+    the stub into a fresh model and optimizer. Returns the restored
+    weights' digest and whether the restored optimizer state equals the
+    rank's own."""
+    path = checkpoint_model(model, optimizer, out_dir, model_name="dcp", backend="orbax")
+    mesh.barrier()
+    payload = load_checkpoint(path)
+    restored = Os2dModel(TRAIN_CONFIG, device="cpu", seed=7)
+    restored.load_state_dict(payload["net"])
+    restored_opt = create_optimizer(cfg.train.optim, trainable_parameters(restored, cfg.train))
+    restored_opt.load_state_dict(payload["optimizer"])
+    want, got = optimizer.state_dict(), restored_opt.state_dict()
+    optimizer_equal = got["param_groups"] == want["param_groups"] and all(
+        torch.equal(got["state"][i][k], v) for i, s in want["state"].items()
+        for k, v in s.items())
+    return {"digest": params_digest(restored), "optimizer_equal": optimizer_equal}
 
 
 def gather_checks(mesh, seed=0):
@@ -202,4 +224,30 @@ def rank_checks(mesh, inputs):
     out["eval"] = {name: eval_outputs(model, loader, eval_cfg(**EVAL_CASES[name][0]), mesh,
                                       losses=EVAL_CASES[name][1])
                    for name in eval_cases(mesh.size)}
+    return out
+
+
+def pretrain_rank(mesh, inputs):
+    """The ImageNet pretrainer over the mesh (os2d_torch/pretrain): from the
+    classifier of seed inputs["seed"] in fp64, make_train_step's steps on
+    the global batches inputs["batches"] (rank 0 writes the final state to
+    <out_dir>/pretrain_mesh.pth); then train() at inputs["train_kwargs"] on
+    an image folder, which rank 0 alone exports. Returns the step metrics
+    and the digests of the rank's weights after each part."""
+    from os2d_torch.pretrain import train_imagenet
+
+    torch.set_num_threads(THREADS)
+    model = train_imagenet.init_classifier("resnet50", inputs["num_classes"], "cpu",
+                                           inputs["seed"]).double()
+    optimizer = train_imagenet.ChainSGD(model.parameters(), train_imagenet.
+                                        piecewise_constant_schedule(0.125, {1: 0.5, 2: 0.5}))
+    step = train_imagenet.make_train_step(model, optimizer, torch.float64, mesh)
+    metrics = [{k: float(v) for k, v in step(torch.from_numpy(images),
+                                             torch.from_numpy(labels)).items()}
+               for images, labels in inputs["batches"]]
+    if mesh.rank == 0:
+        torch.save(model.state_dict(), os.path.join(inputs["out_dir"], "pretrain_mesh.pth"))
+    out = {"metrics": metrics, "digest": params_digest(model)}
+    trained = train_imagenet.train(**inputs["train_kwargs"], mesh=mesh)
+    out["train_digest"] = params_digest(trained)
     return out
