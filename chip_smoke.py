@@ -31,10 +31,15 @@ Phases, each printing one JSON line:
               near-identity px/py (a tile's rows share each sector, as on
               the main path); px/py up to 0.5 outside the map; H=300;
               B*C = 65600; half-way px/py.
-     int8_kernel  the int8 kernel against its plain version on the same
-              cases (and in phase 8 on the main path's inputs at every
-              level) at rtol 1e-5, atol 1e-6, and whether it agreed to the
-              bit.
+     int8_kernel  the int8 kernel against its plain version, from both
+              coordinate sources, at rtol 1e-5, atol 1e-6 and to the bit
+              (it fails otherwise): from px/py on the same cases; from theta
+              (the interior-first head's source: theta, the anchors'
+              feature-map boxes and the template lattice) on the ragged
+              shapes and every bench level (widths 40, 50, 80, 112 among
+              them) with identity, near-identity, random and outside-the-map
+              theta, and on C=128 at the largest level with identity theta;
+              and in phase 8 on the main path's own theta at every level.
   3. planted  the planted-patch scenes of tests/test_end_to_end_eval.py
               through Evaluator.detect_images at the default tier: each patch
               must be the top valid detection of its class (IoU > 0.5), and
@@ -65,9 +70,12 @@ Phases, each printing one JSON line:
               the largest level, beside their bounds, their
               plain versions and one PyTorch call each that computes the
               same function (F.grid_sample and a masked sum; the port calls
-              neither); the int8 kernel likewise, its yardstick
-              F.grid_sample over round(corr*127)/127 * mask, an
-              approximation (its row weights are not quantized).
+              neither); the int8 kernel likewise from the main path's theta
+              and boxes (the dispatch's calls of the head's coordinate
+              function are captured too), its yardstick F.grid_sample over
+              round(corr*127)/127 * mask, an approximation (its row weights
+              are not quantized), its bound the bytes of the corr prefix,
+              theta, boxes, lattice, mask and output.
   9. train_first_step  the training path's first TrainStep at the default
               recipe (below) but with RLL's margin_pos at 1.0, on the card and
               on the CPU from the same weights and batch: loss and gradient
@@ -176,10 +184,10 @@ Phases, each printing one JSON line:
               (a) one nccl rank on cuda:0 takes DIST_STEPS data-parallel
               TrainSteps at phase 10's recipe (batch 4, default tier,
               margin_pos 1.0) from the weights of the plain TrainStep that
-              this process takes on the same batches: the loss terms within
-              rtol 2e-5, weights within rtol 1e-4, atol 1e-6 (the gradient
-              norm is reported beside the spread of a second plain run: the
-              backward's atomic adds move it); s/step of the
+              this process takes on the same batches, both under
+              cudnn.deterministic (a second plain run equal to the bit): the
+              loss terms within rtol 2e-5, weights within rtol 1e-4, atol
+              1e-6 (the gradient norm is reported); s/step of the
               data-parallel and the plain step in turns; then phase 4's
               planted eval at "highest" sharded by classes: mAP@0.50 1.0 as
               unsharded, the packed detections of the planted batch within
@@ -285,13 +293,26 @@ Then the last modules of the JAX package (phases 30-32):
               state bit-equal, and through load_checkpoint_file into a card
               model and a fresh optimizer, bit-equal.
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
-entry point that enqueues a memset, a scatter kernel and a transpose
-kernel) against its plain version: dpx and dpy at rtol 1e-5, atol 1e-6
-(and whether they agree to the bit), dcorr (fp32 atomic sums) at rtol
-1e-5, atol 1e-6 with channels >= T exactly zero, on the ragged shapes,
-integer and border coordinates, collapsed planes (every sample of a plane
-on one point) and the training shape (B=4, C=16, 38x38, T=121 of 225) on
-uniform, near-identity, exact-identity and collapsed inputs.
+entry point that enqueues a scatter kernel, a dcorr kernel and a transpose
+kernel) against its plain version: dpx, dpy and dcorr at rtol 1e-5, atol
+1e-6 with channels >= T exactly zero, dpx and dpy equal to the card's plain
+version to the bit, dcorr equal to the plain version on the CPU to the bit
+(the card's scatter_add_ keeps no order), and two calls equal to the bit
+(it fails otherwise; the CPU's at the training shape on identity inputs
+only, for time), on the ragged shapes, integer and border
+coordinates, collapsed planes (every sample of a plane on one point), the
+training shape (B=4, C=16, 38x38, T=121 of 225) on uniform, near-identity,
+exact-identity and collapsed inputs, t_full 128 and 121 (= T) and
+B*C = 65600.
+After phase 11:
+     determinism  two backward calls on phase 9's captured inputs, and two
+              DETERMINISM_STEPS-step TrainSteps from one seed on the same
+              batches (the train recipe of phase 10, margin_pos 1.0), with
+              cuDNN's default algorithms and with cudnn.deterministic:
+              dcorr, dpx, dpy and every weight compared to the bit. It fails
+              unless the backward's parts and, under cudnn.deterministic,
+              the weights are equal; under the default algorithms (whose
+              gradient sums keep no order) it reports how far they part.
 Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-19
 (each dispatch of phase 14) and read just after it, around each step of
 phase 17, each call of phase 21, in each rank of phase 22 its steps and
@@ -336,6 +357,11 @@ RTOL, ATOL = 1e-5, 1e-6
 # integer products and two sums, two conversions and scalings, two column
 # products and their sum, the mask product and the accumulate
 INT8_OPS_PER_SAMPLE = 49
+# and the sample coordinates from theta: the box-local x and y (two
+# products and two sums each), then per axis a product and a sum (box),
+# two products and a subtract (normalize), a clip (two), a sum and two
+# products (to the map)
+THETA_OPS_PER_SAMPLE = 28
 # the hat kernel rounds at its plain version's points and so agrees with it
 # to the bit; this is the gate it has had since it ran on the tensor cores
 HAT_RTOL, HAT_ATOL = 1e-5, 1e-5
@@ -364,6 +390,7 @@ TRAIN_STEPS = 4
 TRAIN_TIMED_STEPS = 6
 TRAIN_EVAL_IMAGES = 2
 TRAIN_CPU_RTOL = 2e-3
+DETERMINISM_STEPS = 3  # train steps of each of the two runs compared to the bit
 # random weights score every anchor far above 0.6 against every class,
 # positives and negatives alike, whatever is planted; at the recipe's
 # margin_pos 0.6 no positive has a loss, and the cls gradient (the backward
@@ -507,10 +534,18 @@ def hat_bound(b, c, a, t):
     return bound(resample_bytes(b, c, a, t), HAT_FLOPS_PER_SAMPLE * b * c * t * a, FP32_FLOPS)
 
 
-def int8_bound(b, c, a, t):
-    """The int8 kernel: the gather's bytes (it reads fp32 corr), its
-    operations against the fp32 rate of the CUDA cores."""
-    return bound(resample_bytes(b, c, a, t), INT8_OPS_PER_SAMPLE * b * c * t * a, FP32_FLOPS)
+def int8_bytes(b, c, a, t, side):
+    """The int8 kernel from theta: the fp32 corr prefix, theta (6 floats an
+    anchor of each (b, c)), the boxes, the lattice and the mask read once,
+    the output written once."""
+    return 4 * (b * c * t * a + 6 * b * c * a + 4 * a + 2 * side + c * t + b * c * a)
+
+
+def int8_bound(b, c, a, t, side):
+    """The int8 kernel from theta: its bytes, its operations (the int8 hat
+    form and the coordinates) against the fp32 rate of the CUDA cores."""
+    return bound(int8_bytes(b, c, a, t, side),
+                 (INT8_OPS_PER_SAMPLE + THETA_OPS_PER_SAMPLE) * b * c * t * a, FP32_FLOPS)
 
 
 def backward_bytes(b, c, a, t, t_full):
@@ -589,6 +624,36 @@ def random_resample_inputs(b, c, h, w, gen, kind, t_side=11):
         py = (ys.reshape(-1).float() + off_y[:, None] + jitter()).clamp(0, h - 1)
     mask_t = torch.full((c, t), 1.0 / t, device=dev)
     return corr, px.contiguous(), py.contiguous(), mask_t
+
+
+def random_theta_inputs(b, c, h, w, gen, kind):
+    """The int8 kernel's theta source as the interior-first head builds it:
+    theta [B, C, H*W, 6], the anchors' feature-map boxes [H*W, 4] and the
+    template lattice [2, 11]. kind "identity" (the main path with random
+    weights), "near_identity" (each entry moved by up to 0.05), "random"
+    (entries in [-1, 1]) or "outside" (identity moved by up to 3 box
+    half-widths, so that many samples are clipped to the map's border)."""
+    import torch
+
+    from os2d_torch.ops.sampling import linspace
+    from os2d_torch.structures.boxes import strided_anchor_grid
+    from os2d_torch.structures.feature_map import ALIGNER_RECEPTIVE_FIELD, ALIGNER_STRIDE
+
+    dev = "cuda"
+    a = h * w
+    theta = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=dev).repeat(b, c, a, 1)
+    if kind == "near_identity":
+        theta += (torch.rand(b, c, a, 6, generator=gen, device=dev) - 0.5) * 0.1
+    elif kind == "random":
+        theta = torch.rand(b, c, a, 6, generator=gen, device=dev) * 2.0 - 1.0
+    elif kind == "outside":
+        theta[..., 2] += (torch.rand(b, c, a, generator=gen, device=dev) - 0.5) * 6.0
+        theta[..., 5] += (torch.rand(b, c, a, generator=gen, device=dev) - 0.5) * 6.0
+    boxes = strided_anchor_grid(w, h, float(ALIGNER_RECEPTIVE_FIELD.w),
+                                float(ALIGNER_RECEPTIVE_FIELD.h), float(ALIGNER_STRIDE.w),
+                                float(ALIGNER_STRIDE.h), device=dev)
+    lattice = torch.stack([linspace(-1.0, 1.0, 15, device=dev)[2:13]] * 2)
+    return theta.contiguous(), boxes, lattice
 
 
 def planted_scenes():
@@ -1227,7 +1292,7 @@ def _detect_and_evaluate(model, loader, batch, cfg, mesh=None):
 def distributed_rank(mesh, inputs):
     """One rank of phase distributed, in a process of its own: DIST_STEPS
     data-parallel TrainSteps at the default tier from the phase's start
-    weights on its global batches, then, in turns with the plain step on the
+    weights on its global batches under cudnn.deterministic, then, in turns with the plain step on the
     same weights when inputs["time_plain"], the timed steps; then the eval of
     each axis in inputs["eval_axes"] at "highest". Returns the metrics, a
     digest of the weights, the packed detections and mAPs, s/step and each
@@ -1267,8 +1332,15 @@ def distributed_rank(mesh, inputs):
     step = TrainStep(model, objective, optimizer, cfg.train, mesh=mesh)
     prepared = [prepare_batch_arrays(b, device) for b in inputs["batches"]]
     reset_counts()
-    out["metrics"] = [step(*p) for p in prepared]
-    sync()
+    # the held steps under cudnn.deterministic, as the plain reference takes
+    # them; the timed ones below under cuDNN's default algorithms
+    saved_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["metrics"] = [step(*p) for p in prepared]
+        sync()
+    finally:
+        torch.backends.cudnn.deterministic = saved_deterministic
     out["train_launches"] = read_counts()
     out["digest"] = _state_digest(model)
     if mesh.rank == 0:
@@ -1336,19 +1408,29 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
     from os2d_torch.parallel.spawn import run_local_group
 
     # the plain single-process reference, twice from the start weights that
-    # the ranks load (the second run shows the steps' own run-to-run spread)
+    # the ranks load, under cudnn.deterministic as the ranks' held steps: so
+    # every run of the phase compares the same numbers (under cuDNN's default
+    # algorithms the weights part in their last bits from run to run, and
+    # over DIST_STEPS steps that has moved a loss term by 6e-5 relative on
+    # an H100). The second run must repeat the first to the bit.
     start_path = os.path.join(work, "start.pth")
     runs = []
-    for _ in range(2):
-        ref_model = Os2dModel(Os2dConfig(), device=device, seed=DIST_SEED)
-        if not runs:
-            torch.save({k: v.detach().cpu() for k, v in ref_model.state_dict().items()},
-                       start_path)
-        ref_opt = create_optimizer(train_cfg.train.optim,
-                                   trainable_parameters(ref_model, train_cfg.train))
-        ref_step = TrainStep(ref_model, ObjectiveConfig(margin_pos=FIRST_STEP_MARGIN_POS),
-                             ref_opt, train_cfg.train)
-        runs.append(([ref_step(*prepare_batch_arrays(b, device)) for b in batches], ref_model))
+    saved_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            ref_model = Os2dModel(Os2dConfig(), device=device, seed=DIST_SEED)
+            if not runs:
+                torch.save({k: v.detach().cpu() for k, v in ref_model.state_dict().items()},
+                           start_path)
+            ref_opt = create_optimizer(train_cfg.train.optim,
+                                       trainable_parameters(ref_model, train_cfg.train))
+            ref_step = TrainStep(ref_model, ObjectiveConfig(margin_pos=FIRST_STEP_MARGIN_POS),
+                                 ref_opt, train_cfg.train)
+            runs.append(([ref_step(*prepare_batch_arrays(b, device)) for b in batches],
+                         ref_model))
+    finally:
+        torch.backends.cudnn.deterministic = saved_deterministic
     (ref_metrics, ref_model), (rerun_metrics, _) = runs
     ref_final = {k: v.detach().clone() for k, v in ref_model.state_dict().items()}
     del runs, ref_model, ref_step, ref_opt
@@ -1378,12 +1460,21 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
         timeout_s=DIST_TIMEOUT_S)
     b_s = time.perf_counter() - t0
 
-    def rel_err(ranks, keys):
-        return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
-                   for r in ranks for got, want in zip(r["metrics"], ref_metrics) for k in keys)
+    def rel_errs(ranks, keys):
+        """[(relative error, step, term)] of every rank's steps and terms."""
+        return [(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12), i, k)
+                for r in ranks for i, (got, want) in enumerate(zip(r["metrics"], ref_metrics))
+                for k in keys]
 
-    # the loss terms are held; the gradient norm is reported: the backward's
-    # fp32 atomic adds move it between two runs of the plain step alone
+    def rel_err(ranks, keys):
+        return max(e for e, _, _ in rel_errs(ranks, keys))
+
+    def worst(ranks, keys):
+        e, i, k = max(rel_errs(ranks, keys))
+        return f"{e} ({k}, step {i + 1})"
+
+    # the loss terms are held; the gradient norm is reported (the data-parallel
+    # step sums the gradients in another order)
     loss_keys = [k for k in ref_metrics[0] if k != "grad_norm"]
 
     def weights_err(path):
@@ -1404,6 +1495,7 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
                   f"{FIRST_STEP_MARGIN_POS}; eval: phase 4's planted set at highest",
         "nvidia_smi": nvidia_smi_line() if device == "cuda" else None,
         "reference_metrics": ref_metrics,
+        "plain_rerun_bit_equal": rerun_metrics == ref_metrics,
         "plain_rerun_grad_norm_max_rel_err": rel_err([{"metrics": rerun_metrics}],
                                                      ["grad_norm"]),
         "plain_rerun_loss_max_rel_err": rel_err([{"metrics": rerun_metrics}], loss_keys),
@@ -1440,8 +1532,11 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
 
     ra, rb = report["a_nccl_1_rank"], report["b_gloo_2_ranks_on_cuda0"]
     failures = []
+    if not report["plain_rerun_bit_equal"]:
+        failures.append(f"the plain step's rerun differs under cudnn.deterministic: "
+                        f"{worst([{'metrics': rerun_metrics}], list(ref_metrics[0]))}")
     if not ra["loss_max_rel_err"] <= DIST_LOSS_RTOL:
-        failures.append(f"(a) losses off the plain step by {ra['loss_max_rel_err']}")
+        failures.append(f"(a) losses off the plain step by {worst([a], loss_keys)}")
     if not ra["weights_excess_over_tol"] <= 0:
         failures.append(f"(a) weights off the plain step's by {ra['weights_excess_over_tol']} "
                         "over the tolerance")
@@ -1449,7 +1544,7 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
         failures.append(f"(a) class-sharded eval: mAP {ra['mAP@0.50']} against {ref_map}, "
                         f"packed agree {ra['packed_agree']}")
     if not rb["loss_max_rel_err"] <= DIST_LOSS_RTOL:
-        failures.append(f"(b) losses off the plain step by {rb['loss_max_rel_err']}")
+        failures.append(f"(b) losses off the plain step by {worst(b_ranks, loss_keys)}")
     if not rb["weights_bit_equal_across_ranks"]:
         failures.append("(b) the ranks' weights differ")
     for axis, e in rb["eval"].items():
@@ -2629,6 +2724,7 @@ def main(argv):
         hat_resample_operand,
         hat_resample_reference,
         int8_hat_resample_reference,
+        int8_hat_resample_theta_reference,
         quantize_int8,
         resample_backward_reference,
         resample_correlation_from_pxpy_reference,
@@ -2711,42 +2807,84 @@ def main(argv):
                 raise SystemExit(f"hat kernel is {hat_exact_errs[name]} from the exact gather "
                                  f"at {name}, above the margin {DEFAULT_TIER_MARGIN}")
         del corr, px, py, mask_t, got, want, exact
+    # the int8 kernel from theta: the ragged shapes and every bench level
+    # with each kind of theta, C=128 at the largest with identity theta
+    theta_cases = [(shape, kind) for shape in shapes[:-1]
+                   for kind in ("identity", "near_identity", "random", "outside")]
+    theta_cases += [(shapes[-1], "identity")]
+    int8_theta_errs = {}
+    for (b, c, h, w), kind in theta_cases:
+        name = f"theta_{kind}_{b}x{c}x{h}x{w}"
+        corr = torch.tanh(torch.randn(b, c, h, w, 225, generator=gen, device="cuda"))[..., :121]
+        theta, boxes, lattice = random_theta_inputs(b, c, h, w, gen, kind)
+        mask_t = torch.rand(c, 121, generator=gen, device="cuda")
+        got8 = int8_resample.resample_correlation_int8_theta(corr, theta, boxes, lattice, mask_t)
+        torch.cuda.synchronize()
+        int8_theta_errs[name] = max_err_checked(
+            got8, int8_hat_resample_theta_reference(corr, theta, boxes, lattice, mask_t),
+            f"int8 kernel from theta at {name}")
+        del corr, theta, got8
+    errs["int8_hat_resample_correlation"].update(int8_theta_errs)
     # the backward: ragged shapes with uniform (some coordinates on the
     # borders), near-identity, integer (every sample on a tie) and collapsed
-    # coordinates (a plane's adds on four cells), and the training shape
+    # coordinates (a plane's adds on four cells), the training shape, t_full
+    # 128 and 121 (= T), and B*C above 65535; each call twice
     bwd_kinds = ("uniform", "near_identity", "identity", "collapsed")
-    bwd_cases = [(shape, kind) for shape in ragged
+    bwd_cases = [(shape, kind, 225) for shape in ragged
                  for kind in ("uniform", "near_identity", "integer", "collapsed")]
-    bwd_cases += [((4, 16, 38, 38), kind) for kind in bwd_kinds]
+    bwd_cases += [((4, 16, 38, 38), kind, 225) for kind in bwd_kinds]
+    bwd_cases += [((2, 3, 19, 23), "near_identity", t_full) for t_full in (128, 121)]
+    bwd_cases += [((2, 32800, 3, 2), "uniform", 128)]
     errs["resample_correlation_backward"] = {}
-    for (b, c, h, w), kind in bwd_cases:
-        name = f"{kind}_{b}x{c}x{h}x{w}"
+    bwd_repeat, bwd_dcorr_cpu = {}, {}
+    for (b, c, h, w), kind, t_full in bwd_cases:
+        name = f"{kind}_{b}x{c}x{h}x{w}_t{t_full}"
         corr, px, py, mask_t = random_resample_inputs(
             b, c, h, w, gen, "uniform" if kind == "integer" else kind)
+        corr = corr[..., :t_full].contiguous()
         if kind == "integer":
             px, py = px.floor().contiguous(), py.floor().contiguous()
         g = torch.randn(b, c, h * w, generator=gen, device="cuda")
         g_sum = g + torch.randn(b, c, h * w, generator=gen, device="cuda")
-        got = resample_grad.resample_correlation_backward(g, g_sum, corr, px, py, mask_t)
+        args = (g, g_sum, corr, px, py, mask_t)
+        got = resample_grad.resample_correlation_backward(*args)
+        again = resample_grad.resample_correlation_backward(*args)
         torch.cuda.synchronize()
-        want = resample_backward_reference(g, g_sum, corr, px, py, mask_t, px.shape[2])
+        want = resample_backward_reference(*args, px.shape[2])
         errs["resample_correlation_backward"][name] = {
             part: max_err_checked(x, y, f"backward kernel {part} at {name}")
             for part, x, y in zip(("dcorr", "dpx", "dpy"), got, want)}
         if got[0][..., px.shape[2]:].any():
             raise SystemExit(f"backward kernel wrote dcorr channels >= T at {name}")
-        del corr, px, py, mask_t, g, g_sum, got, want
+        bwd_repeat[name] = all(torch.equal(x, y) for x, y in zip(got, again))
+        # the plain version on the CPU (seconds at the training shape: there
+        # on identity inputs only; tests/test_torch_kernels_card.py takes
+        # every kind)
+        if b * c * h * w < 4 * 16 * 38 * 38 or kind == "identity":
+            bwd_dcorr_cpu[name] = torch.equal(got[0].cpu(), resample_backward_reference(
+                *(x.cpu() for x in args), px.shape[2])[0])
+        if not (bwd_repeat[name] and bwd_dcorr_cpu.get(name, True)
+                and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+            raise SystemExit(f"backward kernel at {name}: two calls equal {bwd_repeat[name]}, "
+                             f"dcorr equal to the CPU's plain version {bwd_dcorr_cpu.get(name)}, "
+                             f"dpx/dpy equal to the plain version "
+                             f"{torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])}")
+        del corr, px, py, mask_t, g, g_sum, args, got, again, want
+    int8_bit_equal = all(e == 0.0 for e in errs["int8_hat_resample_correlation"].values())
     emit({"phase": "int8_kernel",
           "int8_hat_resample_correlation": {
               "rtol": RTOL, "atol": ATOL, "max_abs_err": errs["int8_hat_resample_correlation"],
-              "bit_equal": all(e == 0.0 for e in errs["int8_hat_resample_correlation"].values())}})
+              "bit_equal": int8_bit_equal}})
+    if not int8_bit_equal:
+        raise SystemExit("int8 kernel differs from its plain version in some case")
     bwd_errs = errs["resample_correlation_backward"]
     emit({"phase": "kernel",
           "resample_correlation_backward": {
               "rtol": RTOL, "atol": ATOL, "max_abs_err": bwd_errs,
               "dpx_dpy_bit_equal": all(e["dpx"] == 0.0 and e["dpy"] == 0.0
                                        for e in bwd_errs.values()),
-              "dcorr_bit_equal": all(e["dcorr"] == 0.0 for e in bwd_errs.values())}})
+              "dcorr_bit_equal_card_plain": all(e["dcorr"] == 0.0 for e in bwd_errs.values()),
+              "dcorr_bit_equal_cpu_plain": bwd_dcorr_cpu, "two_calls_bit_equal": bwd_repeat}})
     emit({"phase": "kernel",
           "resample_correlation": {"rtol": RTOL, "atol": ATOL,
                                    "max_abs_err": errs["resample_correlation"],
@@ -2968,37 +3106,58 @@ def main(argv):
     # level; both kernels are held against their plain versions and timed
     # there, and on the largest level set beside their bounds, their plain
     # versions and one PyTorch call each
-    captured = []
+    # and the theta, anchor boxes and lattice of the head's coordinate
+    # function at every level, for the int8 kernel's theta source
+    captured, captured_theta = [], []
     original = resample_grad.FORWARD["default"]
+    original_coords = head_module.interior_sample_coords
 
     def capture(corr, px, py, mask_t):
         out = original(corr, px, py, mask_t)
         captured.append((corr, px, py, mask_t, out))
         return out
 
+    def capture_coords(theta, boxes, lattice, h, w):
+        captured_theta.append((theta.contiguous(), boxes, lattice))
+        return original_coords(theta, boxes, lattice, h, w)
+
     resample_grad.FORWARD["default"] = capture
+    head_module.interior_sample_coords = capture_coords
     try:
         ev.detect_images(batches[0], class_head, sizes, inv, norm)
     finally:
         resample_grad.FORWARD["default"] = original
+        head_module.interior_sample_coords = original_coords
     torch.cuda.synchronize()
-    if len(captured) != len(PYRAMID):
-        raise SystemExit(f"captured {len(captured)} resample calls, expected {len(PYRAMID)}")
+    if not len(captured) == len(captured_theta) == len(PYRAMID):
+        raise SystemExit(f"captured {len(captured)} resample and {len(captured_theta)} "
+                         f"coordinate calls, expected {len(PYRAMID)}")
     main_exact_errs = {}
     level_ms = {"resample_correlation": {}, "hat_resample_correlation": {},
                 "int8_hat_resample_correlation": {}}
-    for corr, px, py, mask_t, hat_level in captured:
+    int8_main_bit_equal = {}
+    for (corr, px, py, mask_t, hat_level), (theta, boxes, lattice) in zip(captured,
+                                                                       captured_theta):
         name = f"main_path_{corr.shape[2]}x{corr.shape[3]}"
         level_ms["resample_correlation"][name] = cuda_ms(
             lambda: resample.resample_correlation(corr, px, py, mask_t), 10)
         level_ms["hat_resample_correlation"][name] = cuda_ms(
             lambda: hat_resample.resample_correlation_hat(corr, px, py, mask_t), 10)
         level_ms["int8_hat_resample_correlation"][name] = cuda_ms(
-            lambda: int8_resample.resample_correlation_int8(corr, px, py, mask_t), 10)
+            lambda: int8_resample.resample_correlation_int8_theta(corr, theta, boxes, lattice,
+                                                                  mask_t), 10)
+        got8 = int8_resample.resample_correlation_int8_theta(corr, theta, boxes, lattice, mask_t)
         errs["int8_hat_resample_correlation"][name] = max_err_checked(
-            int8_resample.resample_correlation_int8(corr, px, py, mask_t),
-            int8_hat_resample_reference(corr, px, py, mask_t),
-            f"int8 kernel on main-path inputs at {name}")
+            got8, int8_hat_resample_theta_reference(corr, theta, boxes, lattice, mask_t),
+            f"int8 kernel on main-path theta at {name}")
+        # the same samples from the px/py that the default tier took
+        int8_main_bit_equal[name] = (
+            errs["int8_hat_resample_correlation"][name] == 0.0
+            and torch.equal(got8, int8_resample.resample_correlation_int8(corr, px, py, mask_t)))
+        if not int8_main_bit_equal[name]:
+            raise SystemExit(f"int8 kernel on main-path theta at {name}: not equal to its plain "
+                             f"version, or to itself from the level's px/py, to the bit")
+        del got8
         exact = resample_correlation_from_pxpy_reference(corr, px, py, mask_t)
         errs["resample_correlation"][name] = max_err_checked(
             resample.resample_correlation(corr, px, py, mask_t), exact,
@@ -3015,10 +3174,14 @@ def main(argv):
     emit({"phase": "main_path_inputs", "levels": len(captured),
           "max_abs_err": {k: {n: e for n, e in v.items() if n.startswith("main_path_")}
                           for k, v in errs.items()},
+          "int8_theta_bit_equal": int8_main_bit_equal,
           "hat_vs_exact_gather": main_exact_errs, "ms": level_ms,
           "ms_per_dispatch": {k: sum(v.values()) for k, v in level_ms.items()}})
-    corr, px, py, mask_t, hat_out = max(captured, key=lambda x: x[0].shape[2] * x[0].shape[3])
-    del captured
+    largest = max(range(len(captured)),
+                  key=lambda i: captured[i][0].shape[2] * captured[i][0].shape[3])
+    corr, px, py, mask_t, hat_out = captured[largest]
+    theta, boxes, lattice = captured_theta[largest]
+    del captured, captured_theta
     b, c, h, w, _ = corr.shape
     t, a = px.shape[2], h * w
     shape = {"B": b, "C": c, "H": h, "W": w, "T": t, "corr_row_stride": corr.stride(3)}
@@ -3081,9 +3244,11 @@ def main(argv):
     # grid_sample (border, align_corners) over the planes of
     # round(corr*127)/127 * mask, then the sum over t; planes laid out
     # outside the timing
-    int8_out = int8_resample.resample_correlation_int8(corr, px, py, mask_t)
-    int8_ms = cuda_ms(lambda: int8_resample.resample_correlation_int8(corr, px, py, mask_t), 20)
-    int8_plain_ms = cuda_ms(lambda: int8_hat_resample_reference(corr, px, py, mask_t), 3)
+    int8_out = int8_resample.resample_correlation_int8_theta(corr, theta, boxes, lattice, mask_t)
+    int8_ms = cuda_ms(lambda: int8_resample.resample_correlation_int8_theta(
+        corr, theta, boxes, lattice, mask_t), 20)
+    int8_plain_ms = cuda_ms(lambda: int8_hat_resample_theta_reference(
+        corr, theta, boxes, lattice, mask_t), 3)
     planes = (quantize_int8(corr) / 127.0 * mask_t[None, :, None, None, :]).permute(
         0, 1, 4, 2, 3).reshape(b * c * t, 1, h, w).contiguous()
     grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1], -1).reshape(b * c * t, 1, a, 2)
@@ -3096,8 +3261,9 @@ def main(argv):
     int8_library_err = float((int8_library().view(b, c, h, w) - int8_out).abs().max())
     int8_library_ms = cuda_ms(int8_library, 5)
     del planes, grid
-    int8_bound_ms, int8_bound_by = int8_bound(b, c, a, t)
+    int8_bound_ms, int8_bound_by = int8_bound(b, c, a, t, lattice.shape[1])
     emit({"phase": "resample_timing", "kernel": "int8_hat_resample_correlation", "shape": shape,
+          "source": "theta",
           "ms": int8_ms, "plain_ms": int8_plain_ms, "library_ms": int8_library_ms,
           "library": "F.grid_sample over round(corr*127)/127 * mask + sum over t "
                      "(an approximation: the row weights are not quantized)",
@@ -3105,7 +3271,7 @@ def main(argv):
           "bound_by": int8_bound_by,
           "max_abs_err": errs["int8_hat_resample_correlation"][largest_name],
           "vs_exact_gather": float((int8_out - exact).abs().max())})
-    del corr, px, py, mask_t, exact, gather_out, hat_out, int8_out
+    del corr, px, py, mask_t, exact, gather_out, hat_out, int8_out, theta
 
     # ---- 9.-11. the training path at the default recipe ----
     train_cfg = get_default_cfg()
@@ -3284,6 +3450,47 @@ def main(argv):
           "max_abs_err": errs["resample_correlation_backward"][name],
           "max_abs_want": want_max, "max_abs_g": float(g.abs().max()),
           "atol_relative": ATOL, "rtol": RTOL})
+
+    # determinism: two backward calls on the first step's inputs, then two
+    # short trainings from one seed on the same batches, compared to the bit
+    again = resample_grad.resample_correlation_backward(g, g_sum, corr, px, py, mask_t)
+    got = resample_grad.resample_correlation_backward(g, g_sum, corr, px, py, mask_t)
+    bwd_calls = {part: torch.equal(x, y) for part, x, y in zip(("dcorr", "dpx", "dpy"), got, again)}
+    del got, again
+    det_batches = [prepare_batch_arrays(train_loader.get_batch(i % len(train_loader)), "cuda")
+                   for i in range(DETERMINISM_STEPS)]
+    saved_deterministic = torch.backends.cudnn.deterministic
+    trainings = {}
+    try:
+        for deterministic in (False, True):
+            torch.backends.cudnn.deterministic = deterministic
+            states, losses = [], []
+            for _ in range(2):
+                m = Os2dModel(Os2dConfig(), seed=1)
+                opt = create_optimizer(train_cfg.train.optim,
+                                       trainable_parameters(m, train_cfg.train))
+                step_m = TrainStep(m, first_objective, opt, train_cfg.train)
+                losses.append([step_m(a, cp)["loss"] for a, cp in det_batches])
+                states.append(m.state_dict())
+                del m, opt, step_m
+            diff = {k: float((v - states[1][k]).abs().max()) for k, v in states[0].items()}
+            trainings["cudnn_deterministic" if deterministic else "default"] = {
+                "losses": losses, "weights_bit_equal": all(
+                    torch.equal(v, states[1][k]) for k, v in states[0].items()),
+                "max_weight_diff": max(diff.values()),
+                "tensors_differing": sum(d != 0 for d in diff.values())}
+            del states
+    finally:
+        torch.backends.cudnn.deterministic = saved_deterministic
+    del det_batches
+    emit({"phase": "determinism", "backward_shape": [b, c, h, w],
+          "backward_two_calls_bit_equal": bwd_calls,
+          "train_steps": DETERMINISM_STEPS, "trainings": trainings})
+    if not all(bwd_calls.values()):
+        raise SystemExit(f"determinism: two backward calls differ: {bwd_calls}")
+    if not trainings["cudnn_deterministic"]["weights_bit_equal"]:
+        raise SystemExit(f"determinism: two trainings from one seed differ under "
+                         f"cudnn.deterministic: {trainings}")
     del g, g_sum, corr, px, py, mask_t
 
     # ---- 12. NMS above dense_limit (the block-sequential path) ----

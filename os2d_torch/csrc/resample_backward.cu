@@ -31,21 +31,34 @@
 // Bound on an H100: bytes. Read the corr prefix, px, py, g, g_sum and the
 // mask once, write dpx, dpy and all t_full channels of dcorr once: 0.0918 ms
 // at 3.35 TB/s for the training shape (B=4, C=16, fm 38x38, T=121 of 225).
-// dcorr is a scatter (many anchors sample one cell), summed with fp32
-// atomics, so it agrees with the plain version up to the order of its sums.
+//
+// dcorr is a scatter (many anchors sample one cell). No two threads ever
+// add into one value at once: each cell's terms are summed by one thread
+// after another in the plain version's order, so dcorr repeats to the bit
+// from call to call and equals the plain version on the CPU to the bit (its
+// scatter_add_ adds along the anchors in order; CUDA's scatter_add_ does
+// not keep an order). The plain version adds, per t, corner (1,1)'s terms
+// of all anchors in ascending order, then corner (1,2)'s, (2,1)'s and
+// (2,2)'s. Three kernels behind one entry point:
+// - the scatter kernel computes dpx and dpy only;
+// - the dcorr kernel gives each (bc, t) plane one owner warp, whose
+//   accumulator [H*W] lies in shared memory where it fits (else in the
+//   scratch plane itself). The warp walks corner k, then the anchors in
+//   chunks of 32, and computes each term from px, py and g_sum (a term does
+//   not depend on corr). The lanes of a chunk whose terms fall on one cell
+//   add them one round each, in lane order; lanes on distinct cells add in
+//   the same round. Every cell thus gets its terms in the plain version's
+//   order, with one writer at a time;
+// - the transpose kernel writes dcorr whole from the scratch.
+// A design that writes each sample's four terms to a [B*C, T, 4, H*W]
+// buffer from the scatter kernel moves 2 x 179 MB more at the training
+// shape; since a term needs no corr value, the dcorr kernel recomputes it
+// from px/py (89 MB, read again) instead. The scatter kernel adds nothing
+// into the scratch, which needs no memset.
+//
 // What held the first kernel (0.78 ms at that shape on an H100, 3.1x
-// aten.grid_sampler_2d_backward) back, and what this design does about it:
-// - Its atomics went straight into dcorr's [BC, H, W, t_full] layout, where
-//   the 32 anchors of a warp at one t add to cells 900 bytes apart: each add
-//   was its own L2 sector operation. Here the scatter kernel adds into a
-//   scratch in the library's layout, [BC, T, H*W]: a warp's adds at one t
-//   fall on neighbouring words of one plane, a few sectors an instruction.
-//   The adds' results are unused, so they compile to red.
-// - Neighbouring lanes at near-identity px/py add to the same cells: lane
-//   i's right-hand column is lane i+1's left-hand one. Lane i+1 then adds
-//   both contributions with one red, and lane i adds nothing there. The
-//   test is the forward's corner-sharing test (resample_tile.cuh); any
-//   px/py gives the right sums, only the count of adds changes.
+// aten.grid_sampler_2d_backward) back, and what the scatter kernel does
+// about it:
 // - It computed four weights and derivatives an axis and read up to 12
 //   cells a sample, in one dependent chain per t. Here each axis has a
 //   window of two cells, floor(p) clamped to [0, n - 2], which holds both
@@ -61,15 +74,17 @@
 //   holds the same cells) issued together, so each chunk waits on memory
 //   twice.
 // - The first kernel zero-filled all 225 channels of dcorr and then wrote
-//   the 121-channel prefix scattered. Here the memset clears the scratch
-//   (the T channels only), and the transpose kernel writes dcorr whole,
-//   once: it reads scratch rows along H*W into a shared-memory tile and
-//   writes each block's contiguous run of dcorr in order, with exact zeros
-//   in channels t >= T (as JAX's gradient through corr[..., :T] leaves them).
-// The scratch's memset, red traffic and read (3 x 44.7 MB at the training
-// shape) are not in the bound. The one C entry point enqueues the memset and
-// both kernels on the caller's stream, allocates nothing and does not
+//   the 121-channel prefix scattered. Here the transpose kernel writes dcorr
+//   whole, once: it reads scratch rows along H*W into a shared-memory tile
+//   and writes each block's contiguous run of dcorr in order, with exact
+//   zeros in channels t >= T (as JAX's gradient through corr[..., :T] leaves
+//   them).
+// The scratch's write and read (2 x 44.7 MB at the training shape) and the
+// second read of px/py are not in the bound. The one C entry point enqueues
+// the three kernels on the caller's stream, allocates nothing and does not
 // synchronise. Measured times and the designs tried are in PERF.md.
+
+#include <algorithm>
 
 #include "resample_tile.cuh"
 
@@ -79,30 +94,36 @@ constexpr unsigned kFull = 0xffffffffu;
 // template points whose coordinate and corner loads a thread issues together
 constexpr int kChunk = 4;
 constexpr int kTransposeTile = 32;  // anchors per transpose block
+constexpr int kDcorrWarps = 4;      // (bc, t) planes per dcorr block, one warp each
+// chunks of 32 anchors whose loads a dcorr warp issues together
+constexpr int kDcorrDepth = 4;
+// the dcorr kernel's accumulators live in shared memory up to this many
+// bytes a block (the 227 KB a block may have, less a margin)
+constexpr size_t kDcorrSharedBytes = 200 * 1024;
 
 struct BackwardArgs {
   const float* g;      // [BC, H*W]
-  const float* g_sum;  // [BC, H*W]
   const float* corr;   // [BC, H, W, t_full]
   const float* px;     // [BC, T, H*W]
   const float* py;     // [BC, T, H*W]
   const float* mask;   // [C, T]
-  float* scratch;      // [BC, T, H*W], zeroed: dcorr's channels t < T
   float* dpx;          // [BC, T, H*W]
   float* dpy;          // [BC, T, H*W]
   int num_classes, h, w, t_count, t_full;
   int tiles_x, tiles_y;
 };
 
-// *p += value unless value is 0 (a NaN is added), as a predicated
-// red.global.add.f32: an atomic add whose result is unused, with no branch
-__device__ __forceinline__ void add_if(float value, float* p) {
-  asm volatile(
-      "{\n .reg .pred q;\n setp.neu.f32 q, %1, 0f00000000;\n @q red.global.add.f32 [%0], %1;\n}\n"
-      :
-      : "l"(p), "f"(value)
-      : "memory");
-}
+struct DcorrArgs {
+  const float* g_sum;  // [BC, H*W]
+  const float* px;     // [BC, T, H*W]
+  const float* py;     // [BC, T, H*W]
+  const float* mask;   // [C, T]
+  float* scratch;      // [BC, T, H*W]: dcorr's channels t < T, every value written
+  int64_t plane_count; // BC * T
+  int num_classes, h, w, t_count;
+  int warps;           // planes per block
+  bool shared;         // accumulators in shared memory (else in the scratch)
+};
 
 // The hat weight max(0, 1 - |p - i|) of index i and its derivative by p
 // under JAX's rules, for an i inside the map; p - i rounded in fp32 as the
@@ -202,9 +223,8 @@ struct Lane {
   const float* py;
   float* dpx;
   float* dpy;
-  float* splane;       // scratch [T, H*W] of this (b, c)
   const float* mask;   // mask[c, 0]
-  float g, g_sum;      // 0 for a lane past the map
+  float g;             // 0 for a lane past the map
   float wf, hf;
   int w, a_count, t_full;
   int dx, dy;          // cell offset of the window's second column and row (0 where n = 1)
@@ -213,8 +233,8 @@ struct Lane {
 };
 
 // K template points t0 .. t0 + K - 1 of one lane (a full chunk, or K = 1 for
-// the tail): dpx and dpy (a tie's are redone later), and dcorr's
-// contributions added into the scratch. Returns whether a sample was a tie.
+// the tail): dpx and dpy (a tie's are redone later). Returns whether a
+// sample was a tie.
 template <int K>
 __device__ __forceinline__ bool scatter_chunk(const Lane& l, int t0) {
   float x[K], y[K], m[K], xfl[K], yfl[K];
@@ -277,26 +297,6 @@ __device__ __forceinline__ bool scatter_chunk(const Lane& l, int t0) {
       l.dpx[t * l.a_count] = sx;
       l.dpy[t * l.a_count] = sy;
     }
-
-    // dcorr: hy * (gd * hx) where both weights are non-zero (a zero
-    // contribution is not added, which changes no sum); a right-hand one
-    // goes to the next lane where `got`, and this lane adds the previous
-    // lane's likewise
-    const float gd = __fmul_rn(l.g_sum, m[k]);
-    const float gx0d = X.wt0 != 0.0f ? __fmul_rn(gd, X.wt0) : 0.0f;
-    const float gx1d = X.wt1 != 0.0f ? __fmul_rn(gd, X.wt1) : 0.0f;
-    const float c00 = Y.wt0 != 0.0f ? __fmul_rn(Y.wt0, gx0d) : 0.0f;
-    const float c10 = Y.wt1 != 0.0f ? __fmul_rn(Y.wt1, gx0d) : 0.0f;
-    const float c01 = Y.wt0 != 0.0f ? __fmul_rn(Y.wt0, gx1d) : 0.0f;
-    const float c11 = Y.wt1 != 0.0f ? __fmul_rn(Y.wt1, gx1d) : 0.0f;
-    const bool take = __shfl_up_sync(kFull, got[k], 1) && l.lane > 0;
-    const float q01 = __shfl_up_sync(kFull, c01, 1);
-    const float q11 = __shfl_up_sync(kFull, c11, 1);
-    float* sp = l.splane + t * l.a_count + i00[k];
-    add_if(take ? __fadd_rn(c00, q01) : c00, sp);
-    add_if(take ? __fadd_rn(c10, q11) : c10, sp + l.dy);
-    add_if(got[k] ? 0.0f : c01, sp + l.dx);
-    add_if(got[k] ? 0.0f : c11, sp + l.dx + l.dy);
   }
   return any_tie;
 }
@@ -311,9 +311,8 @@ resample_backward_scatter_kernel(const BackwardArgs args) {
   const int tile_x = tile - tile_y * args.tiles_x;
   const int ax = tile_x * os2d::kTileCols + (threadIdx.x & 31);
   const int ay = tile_y * os2d::kTileRows + (threadIdx.x >> 5);
-  // lanes past the map stay to the end (they take part in the shuffles, and
-  // may add a neighbour's contribution) but load no coordinates, store
-  // nothing and contribute nothing of their own (their g_sum is 0)
+  // lanes past the map stay to the end (they take part in the shuffles) but
+  // load no coordinates and store nothing
   const bool valid = ax < w && ay < h;
   const int a_count = h * w;
   const int a = valid ? ay * w + ax : 0;
@@ -324,10 +323,8 @@ resample_backward_scatter_kernel(const BackwardArgs args) {
                args.py + coord_base + a,
                args.dpx + coord_base + a,
                args.dpy + coord_base + a,
-               args.scratch + coord_base,
                args.mask + static_cast<int64_t>(bc % args.num_classes) * t_count,
                valid ? args.g[static_cast<int64_t>(bc) * a_count + a] : 0.0f,
-               valid ? args.g_sum[static_cast<int64_t>(bc) * a_count + a] : 0.0f,
                static_cast<float>(w),
                static_cast<float>(h),
                w,
@@ -362,6 +359,146 @@ resample_backward_scatter_kernel(const BackwardArgs args) {
       }
     }
   }
+}
+
+// The plain version's hat weight of index i = floor(p) - 1 + k (k = 1, 2)
+// on one axis of n cells, i formed as it forms it: 0 outside the map (a NaN
+// p is outside too), else max(0, 1 - |p - i|) with a NaN kept.
+__device__ __forceinline__ float plain_weight(float p, int k, float n, float& i) {
+  i = __fadd_rn(__fsub_rn(floorf(p), 1.0f), static_cast<float>(k));
+  if (!(i >= 0.0f && i < n)) return 0.0f;
+  const float r = __fsub_rn(1.0f, fabsf(__fsub_rn(p, i)));
+  return r < 0.0f ? 0.0f : r;
+}
+
+// dcorr's channels t < T into the scratch [BC, T, H*W]. One warp owns one
+// (bc, t) plane, so no other thread writes it. Per corner (i, j) in the
+// plain version's order (1,1), (1,2), (2,1), (2,2), and per chunk of 32
+// anchors in ascending order, each lane forms its anchor's term hy_i *
+// (gd * hx_j) (0 unless both weights are non-zero) and its cell; the lanes
+// that share a cell add their terms one round each, in lane order, and the
+// lanes of distinct cells in the same round. So each cell adds its terms one
+// at a time in the plain version's order. A zero term is not added: the
+// sum starts at +0 and is never -0, so adding a zero would change nothing.
+// The kernel is bound by its instructions per term, and most of them went
+// to finding the lanes that share a cell. Where they do at all, those lanes
+// are mostly neighbours (anchors clipped to one border cell, neighbouring
+// anchors at near-identity px/py): so each run of equal cells in lane order
+// is taken as a group, and a byte tag per cell in shared memory (each run's
+// first lane writes its lane number to its cell's tag and reads it back)
+// shows whether two runs share a cell. Only then are the groups found with
+// one ballot per bit of the cells' span. (__match_any_sync on every chunk,
+// or a ballot per bit of the cell index, took 0.38-0.45 ms at the training
+// shape on an H100.) px, py and g_sum are loaded kDcorrDepth chunks at a
+// time, the next group's while the current group's adds run.
+// The lanes of one chunk that add into one cell, in lane order: `rank` is
+// this lane's place among them. `tag` (a byte per cell, or null) tests
+// whether the runs of equal cells in lane order are the groups.
+__device__ __forceinline__ int rank_in_cell(int cell, int lane, unsigned below,
+                                            unsigned char* tag) {
+  const int before = __shfl_up_sync(kFull, cell, 1);  // every lane shuffles
+  const bool head = lane == 0 || cell != before;
+  bool runs = false;
+  if (tag != nullptr) {
+    if (head && cell >= 0) tag[cell] = static_cast<unsigned char>(lane);
+    __syncwarp();
+    runs = !__any_sync(kFull, head && cell >= 0 && tag[cell] != lane);
+  }
+  if (runs) {  // the lanes of a cell are one run: the rank is the place in it
+    const unsigned heads = __ballot_sync(kFull, head) & (below | (1u << lane));
+    return lane - (31 - __clz(static_cast<int>(heads)));
+  }
+  // else the lanes with a term whose cell agrees in every bit of the span
+  const int lo = __reduce_min_sync(kFull, cell >= 0 ? cell : INT_MAX);
+  const unsigned key = cell >= 0 ? static_cast<unsigned>(cell - lo) : 0u;
+  const int bits = 32 - __clz(static_cast<int>(__reduce_max_sync(kFull, key)));
+  unsigned same = __ballot_sync(kFull, cell >= 0);
+  for (int b = 0; b < bits; ++b) {
+    const bool bit = (key >> b) & 1u;
+    const unsigned ones = __ballot_sync(kFull, bit);
+    same &= bit ? ones : ~ones;
+  }
+  return cell >= 0 ? __popc(same & below) : 0;
+}
+
+__global__ void __launch_bounds__(kDcorrWarps * 32)
+resample_backward_dcorr_kernel(const DcorrArgs args) {
+  // where args.shared: [warps][H*W] accumulators, then [warps][H*W] byte tags
+  extern __shared__ float planes[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t plane = static_cast<int64_t>(blockIdx.x) * args.warps + warp;
+  if (plane >= args.plane_count) return;  // no block barrier follows
+  const int w = args.w, a_count = args.h * w;
+  const int64_t bc = plane / args.t_count;
+  const int t = static_cast<int>(plane - bc * args.t_count);
+  const float wf = static_cast<float>(w), hf = static_cast<float>(args.h);
+  float* out = args.scratch + plane * a_count;
+  float* acc = out;
+  unsigned char* tag = nullptr;
+  if (args.shared) {
+    acc = planes + static_cast<int64_t>(warp) * a_count;
+    tag = reinterpret_cast<unsigned char*>(planes + static_cast<int64_t>(args.warps) * a_count) +
+          static_cast<int64_t>(warp) * a_count;
+  }
+  for (int i = lane; i < a_count; i += 32) acc[i] = 0.0f;
+  __syncwarp();
+  const float* px = args.px + plane * a_count;
+  const float* py = args.py + plane * a_count;
+  const float* g_sum = args.g_sum + bc * a_count;
+  const float m = __ldg(args.mask + (bc % args.num_classes) * args.t_count + t);
+  const unsigned below = (1u << lane) - 1u;
+  constexpr int kGroup = 32 * kDcorrDepth;
+  for (int k = 0; k < 4; ++k) {
+    const int ki = 1 + (k >> 1), kj = 1 + (k & 1);
+    // px, py and g_sum of kDcorrDepth chunks loaded together, the next
+    // group's in flight while the current group's adds run
+    float nx[kDcorrDepth], ny[kDcorrDepth], ng[kDcorrDepth];
+#pragma unroll
+    for (int j = 0; j < kDcorrDepth; ++j) {
+      const int a = 32 * j + lane;
+      nx[j] = a < a_count ? __ldg(px + a) : 0.0f;
+      ny[j] = a < a_count ? __ldg(py + a) : 0.0f;
+      ng[j] = a < a_count ? __ldg(g_sum + a) : 0.0f;
+    }
+    for (int g0 = 0; g0 < a_count; g0 += kGroup) {
+      float x[kDcorrDepth], y[kDcorrDepth], gs[kDcorrDepth];
+#pragma unroll
+      for (int j = 0; j < kDcorrDepth; ++j) {
+        x[j] = nx[j];
+        y[j] = ny[j];
+        gs[j] = ng[j];
+        const int a = g0 + kGroup + 32 * j + lane;
+        nx[j] = a < a_count ? __ldg(px + a) : 0.0f;
+        ny[j] = a < a_count ? __ldg(py + a) : 0.0f;
+        ng[j] = a < a_count ? __ldg(g_sum + a) : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kDcorrDepth; ++j) {
+        const int a0 = g0 + 32 * j;
+        if (a0 >= a_count) break;  // uniform over the warp
+        float v = 0.0f;
+        int cell = -1 - lane;  // a lane with no term is a group of its own
+        if (a0 + lane < a_count) {
+          float xi, yi;
+          const float hx = plain_weight(x[j], kj, wf, xi);
+          const float hy = plain_weight(y[j], ki, hf, yi);
+          if (hx != 0.0f && hy != 0.0f) {
+            v = __fmul_rn(hy, __fmul_rn(__fmul_rn(gs[j], m), hx));
+            if (v != 0.0f) cell = static_cast<int>(yi) * w + static_cast<int>(xi);
+          }
+        }
+        const int rank = rank_in_cell(cell, lane, below, tag);
+        const int rounds =
+            static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(rank))) + 1;
+        for (int r = 0; r < rounds; ++r) {
+          if (rank == r && cell >= 0) acc[cell] = __fadd_rn(acc[cell], v);
+          __syncwarp();
+        }
+      }
+    }
+  }
+  if (args.shared)
+    for (int i = lane; i < a_count; i += 32) out[i] = acc[i];
 }
 
 // dcorr [BC, H*W, t_full] from the scratch [BC, T, H*W]: a block owns
@@ -401,13 +538,14 @@ resample_backward_transpose_kernel(const float* scratch, float* dcorr, int a_cou
 
 }  // namespace
 
-// Enqueues on `stream` the scratch's memset, the scatter kernel and the
+// Enqueues on `stream` the scatter kernel, the dcorr kernel and the
 // transpose kernel, and returns the first CUDA error code (0 on success).
 // The caller has checked shapes, strides and devices: g and g_sum are
 // [B*C, H*W], corr and dcorr [B*C, H, W, t_full] contiguous, px/py/dpx/dpy
-// [B*C, T, H*W], mask [C, T], scratch [B*C, T, H*W] (any contents). It
-// refuses a plane of more than 2^31 - 1 floats, and a T whose transpose tile
-// exceeds the 227 KB of shared memory a block may have (T > 1760).
+// [B*C, T, H*W], mask [C, T], scratch [B*C, T, H*W] (any contents; every
+// value is written). It refuses a plane of more than 2^31 - 1 floats, and a
+// T whose transpose tile exceeds the 227 KB of shared memory a block may
+// have (T > 1760).
 extern "C" int os2d_resample_correlation_backward(
     const float* g, const float* g_sum, const float* corr, const float* px, const float* py,
     const float* mask, float* scratch, float* dcorr, float* dpx, float* dpy, int bc_count,
@@ -419,22 +557,44 @@ extern "C" int os2d_resample_correlation_backward(
   const int a_count = h * w;
   const int a_tiles = (a_count + kTransposeTile - 1) / kTransposeTile;
   const int64_t transpose_blocks = static_cast<int64_t>(bc_count) * a_tiles;
+  // the dcorr kernel's accumulators and tags: in shared memory where one
+  // plane's fit in kDcorrSharedBytes (as many planes a block as fit, up to
+  // kDcorrWarps), else the accumulators in the scratch planes and no tags,
+  // kDcorrWarps a block
+  const size_t plane_bytes = (sizeof(float) + 1) * static_cast<size_t>(a_count);
+  const bool shared = plane_bytes <= kDcorrSharedBytes;
+  const int dcorr_warps =
+      shared ? static_cast<int>(std::min<size_t>(kDcorrWarps, kDcorrSharedBytes / plane_bytes))
+             : kDcorrWarps;
+  const size_t dcorr_bytes = shared ? plane_bytes * dcorr_warps : 0;
+  const int64_t plane_count = static_cast<int64_t>(bc_count) * t_count;
+  const int64_t dcorr_blocks = (plane_count + dcorr_warps - 1) / dcorr_warps;
   // the kernels index within one plane in 32 bits
   const int64_t plane_size =
       static_cast<int64_t>(a_count) * (t_full > t_count ? t_full : int64_t{t_count});
-  if (blocks < 1 || blocks > INT_MAX || transpose_blocks > INT_MAX || plane_size > INT_MAX)
+  if (blocks < 1 || blocks > INT_MAX || transpose_blocks > INT_MAX || dcorr_blocks > INT_MAX ||
+      plane_size > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, sizeof(float) * static_cast<size_t>(bc_count) * t_count * a_count, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const BackwardArgs args{g, g_sum, corr, px, py, mask, scratch, dpx, dpy, num_classes, h, w,
-                          t_count, static_cast<int>(t_full), tiles_x, tiles_y};
+  const BackwardArgs args{g, corr, px, py, mask, dpx, dpy, num_classes, h, w, t_count,
+                          static_cast<int>(t_full), tiles_x, tiles_y};
   resample_backward_scatter_kernel<<<static_cast<unsigned>(blocks), os2d::kThreads, 0, s>>>(
       args);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dcorr_bytes > 48 * 1024) {  // above the default limit of dynamic shared memory
+    err = cudaFuncSetAttribute(resample_backward_dcorr_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dcorr_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const DcorrArgs dargs{g_sum, px, py, mask, scratch, plane_count, num_classes, h, w, t_count,
+                        dcorr_warps, shared};
+  resample_backward_dcorr_kernel<<<static_cast<unsigned>(dcorr_blocks), dcorr_warps * 32,
+                                   dcorr_bytes, s>>>(dargs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t tile_bytes = sizeof(float) * (kTransposeTile + 1) * static_cast<size_t>(t_count);
-  if (tile_bytes > 48 * 1024) {  // above the default limit of dynamic shared memory
+  if (tile_bytes > 48 * 1024) {
     err = cudaFuncSetAttribute(resample_backward_transpose_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(tile_bytes));

@@ -158,7 +158,14 @@ class TrainStep:
         `prepare_batch_arrays`, num_classes its padded class count). Returns
         the loss terms and the gradient norm (before clipping) as floats:
         reading them, and deciding whether the update is finite, is the
-        step's one wait for the device."""
+        step's one wait for the device.
+
+        The resample's backward sums in a fixed order, but cuDNN's default
+        algorithms sum the convolutions' gradients in none: two steps from
+        one state then differ in their last bits. Under
+        `torch.backends.cudnn.deterministic = True` they agree to the bit,
+        at about a quarter more time a step at the default recipe on an
+        H100 (PERF.md)."""
         model, tcfg, mesh = self.model, self.train_cfg, self.mesh
         mean, std = self.mean, self.std
         for p in model.parameters():

@@ -22,12 +22,14 @@ from ..ops.geometry import (
     affine_grid_corners,
     affine_grid_envelope,
     clip_jax_grad,
+    interior_sample_coords,
     invert_affine_2x3,
     l2_normalize_channels,
     local_to_global_grid,
 )
+from ..ops.int8_resample import resample_correlation_int8_theta
 from ..ops.resample_grad import FORWARD as RESAMPLE_FORWARD
-from ..ops.resample_grad import resample_correlation_autograd
+from ..ops.resample_grad import records_graph, resample_correlation_autograd
 from ..ops.sampling import grid_resample_operands, linspace, resize_bilinear_align_corners
 from ..structures.boxes import clip_to_min_size, encode_boxes, strided_anchor_grid
 from ..structures.feature_map import (
@@ -163,39 +165,31 @@ def _prepare_theta(tparams, simple_affine: bool):
 
 def _interior_first_resample(corr, theta, anchor_boxes, pool_mask, precision: str):
     """(cls, cls_detached) on the interior-first corr: sample coordinates
-    straight from theta as an outer product over the interior template
-    lattice, in the resample's t-major [B, C, T, A] layout, the same scalar
-    expression per point as the grid path (os2d_tpu/models/head.py:254-299),
-    and the resample reads the interior prefix of corr as it is."""
+    straight from theta over the interior template lattice
+    (`ops.geometry.interior_sample_coords`, the same scalar expression per
+    point as the grid path, os2d_tpu/models/head.py:254-299), and the
+    resample reads the interior prefix of corr as it is. The int8 tier,
+    where no graph is recorded, takes theta itself: its kernel forms the
+    coordinates in registers, and no [B, C, T, A] px/py is built."""
     b, c, h, w, _ = corr.shape
     a = h * w
     device = corr.device
     bw = POOL_BORDER_WIDTH
     ts = slice(bw, TEMPLATE_H - bw)
-    n_side = TEMPLATE_H - 2 * bw
-    n_int = n_side * (TEMPLATE_W - 2 * bw)
+    n_int = (TEMPLATE_H - 2 * bw) * (TEMPLATE_W - 2 * bw)
     # a bfloat16 bank's pool mask takes the fp32 of its rounded values, as
     # JAX casts it to corr's dtype (os2d_tpu/ops/sampling.py:182)
     mask_t = pool_mask[:, ts, ts].transpose(1, 2).reshape(c, n_int)
     mask_t = mask_t.float().contiguous()
-
-    th6 = theta.reshape(b, c, 1, a, 2, 3)
-    xs_int = linspace(-1.0, 1.0, TEMPLATE_W, device=device)[ts]
-    ys_int = linspace(-1.0, 1.0, TEMPLATE_H, device=device)[ts]
     # t = tx * th_int + ty (the _interior_permutation / weakalign order)
-    ux = xs_int.repeat_interleave(n_side)[None, None, :, None]
-    uy = ys_int.repeat(TEMPLATE_W - 2 * bw)[None, None, :, None]
-    lx = th6[..., 0, 0] * ux + th6[..., 0, 1] * uy + th6[..., 0, 2]
-    ly = th6[..., 1, 0] * ux + th6[..., 1, 1] * uy + th6[..., 1, 2]
-    fb = anchor_boxes.reshape(1, 1, 1, a, 4)
-    fx_a = (fb[..., 2] - fb[..., 0]) / 2.0
-    fx_b = (fb[..., 2] + fb[..., 0]) / 2.0
-    fy_a = (fb[..., 3] - fb[..., 1]) / 2.0
-    fy_b = (fb[..., 3] + fb[..., 1]) / 2.0
-    gx = clip_jax_grad((lx * fx_a + fx_b) / (w - 1) * 2.0 - 1.0, -1.0, 1.0)
-    gy = clip_jax_grad((ly * fy_a + fy_b) / (h - 1) * 2.0 - 1.0, -1.0, 1.0)
-    px = (gx + 1.0) * 0.5 * (w - 1)
-    py = (gy + 1.0) * 0.5 * (h - 1)
+    lattice = torch.stack([linspace(-1.0, 1.0, TEMPLATE_W, device=device)[ts],
+                           linspace(-1.0, 1.0, TEMPLATE_H, device=device)[ts]])
+    theta = theta.reshape(b, c, a, 6)
+    if precision == "int8" and not records_graph(corr, theta):
+        cls = resample_correlation_int8_theta(corr[..., :n_int], theta.contiguous(),
+                                              anchor_boxes, lattice, mask_t)
+        return cls, cls.clone()
+    px, py = interior_sample_coords(theta, anchor_boxes, lattice, h, w)
     return resample_correlation_autograd(corr, px, py, mask_t, precision)
 
 

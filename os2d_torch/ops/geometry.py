@@ -81,6 +81,47 @@ def local_to_global_grid(grids_local, boxes_xyxy):
     return torch.stack([gx, gy], dim=-1)
 
 
+def interior_sample_coords(theta, anchor_boxes, lattice, h: int, w: int):
+    """The resample's sample coordinates px, py [B, C, T, A] of the
+    interior-first head (os2d_tpu/models/head.py:254-299), straight from
+    theta as an outer product over the template lattice, t = tx * n + ty.
+
+    The same scalar expression per point as the grid path, each product and
+    sum a torch op of its own: box-local (t00*ux + t01*uy) + t02 (and row 1
+    for y), then ((l * half + center) / (w - 1)) * 2 - 1 clipped to [-1, 1]
+    with JAX's derivative, then ((g + 1) * 0.5) * (w - 1). On a CUDA tensor
+    ATen divides by the Python scalar (w - 1) as a multiply by fp32(1 /
+    fp32(w - 1)), on the CPU it divides; the int8 kernel
+    (csrc/int8_hat_resample.cu) forms these coordinates in registers with
+    the card's roundings.
+
+    Args:
+      theta: [B, C, A, 6] inverted affine transforms, rows (t00, t01, t02,
+        t10, t11, t12), A = H * W.
+      anchor_boxes: [A, 4] the anchors' feature-map boxes (x0, y0, x1, y1).
+      lattice: [2, n] the template points' abscissae and ordinates (the
+        interior of `linspace(-1, 1, 15)`), T = n * n.
+    Returns (px, py), each [B, C, T, A] float32.
+    """
+    b, c, a, _ = theta.shape
+    n = lattice.shape[1]
+    th = theta.reshape(b, c, 1, a, 6)
+    ux = lattice[0].repeat_interleave(n)[None, None, :, None]
+    uy = lattice[1].repeat(n)[None, None, :, None]
+    lx = th[..., 0] * ux + th[..., 1] * uy + th[..., 2]
+    ly = th[..., 3] * ux + th[..., 4] * uy + th[..., 5]
+    fb = anchor_boxes.reshape(1, 1, 1, a, 4)
+    fx_a = (fb[..., 2] - fb[..., 0]) / 2.0
+    fx_b = (fb[..., 2] + fb[..., 0]) / 2.0
+    fy_a = (fb[..., 3] - fb[..., 1]) / 2.0
+    fy_b = (fb[..., 3] + fb[..., 1]) / 2.0
+    gx = clip_jax_grad((lx * fx_a + fx_b) / (w - 1) * 2.0 - 1.0, -1.0, 1.0)
+    gy = clip_jax_grad((ly * fy_a + fy_b) / (h - 1) * 2.0 - 1.0, -1.0, 1.0)
+    px = (gx + 1.0) * 0.5 * (w - 1)
+    py = (gy + 1.0) * 0.5 * (h - 1)
+    return px, py
+
+
 def affine_grid_envelope(theta):
     """Tight per-axis envelope of the affine lattice theta @ [ux, uy, 1] over
     (ux, uy) in [-1, 1]^2: each output coordinate is extremized at the +-1

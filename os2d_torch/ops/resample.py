@@ -30,31 +30,17 @@ ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.
 KERNEL = CudaKernel("resample.cu", "os2d_resample_correlation", ARGTYPES)
 
 
-def check_contract(corr, px, py, mask_t):
-    """Raise ValueError unless the arguments meet the module's contract
-    (shared by the hat resample of `ops/hat_resample.py`)."""
+def check_corr(corr, t: int):
+    """Raise ValueError unless corr is a float32 [B, C, H, W, T_full] with
+    T_full >= t, last-dim stride 1 and uniform row strides (the contract's
+    corr, shared by every resample kernel's wrapper)."""
     if corr.dim() != 5:
         raise ValueError(f"corr must be [B, C, H, W, T_full], got {tuple(corr.shape)}")
     b, c, h, w, t_full = corr.shape
-    if px.dim() != 4:
-        raise ValueError(f"px must be [B, C, T, A], got {tuple(px.shape)}")
-    t = px.shape[2]
-    if tuple(px.shape) != (b, c, t, h * w) or tuple(py.shape) != tuple(px.shape):
-        raise ValueError(
-            f"px/py must be [B, C, T, A] = {(b, c, t, h * w)}, got "
-            f"{tuple(px.shape)} and {tuple(py.shape)}")
-    if tuple(mask_t.shape) != (c, t):
-        raise ValueError(f"mask_t must be [C, T] = {(c, t)}, got {tuple(mask_t.shape)}")
     if t > t_full:
         raise ValueError(f"corr has {t_full} channels, fewer than T={t}")
-    for name, x in (("corr", corr), ("px", px), ("py", py), ("mask_t", mask_t)):
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {x.dtype}")
-        if x.device != corr.device:
-            raise ValueError(f"{name} is on {x.device}, corr on {corr.device}")
-    for name, x in (("px", px), ("py", py), ("mask_t", mask_t)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if corr.dtype != torch.float32:
+        raise ValueError(f"corr must be float32, got {corr.dtype}")
     # the kernels index corr as ((bc * H + y) * W + x) * row + t; the stride
     # of a dimension of size 1 is never used (a permuted single-class corr
     # keeps an odd one)
@@ -64,6 +50,37 @@ def check_contract(corr, px, py, mask_t):
         raise ValueError(
             f"corr needs last-dim stride 1 and uniform row strides, got "
             f"strides {corr.stride()} for shape {tuple(corr.shape)}")
+
+
+def check_operands(corr, named):
+    """Raise ValueError unless each (name, tensor) is float32, contiguous and
+    on corr's device."""
+    for name, x in named:
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if x.device != corr.device:
+            raise ValueError(f"{name} is on {x.device}, corr on {corr.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def check_contract(corr, px, py, mask_t):
+    """Raise ValueError unless the arguments meet the module's contract
+    (shared by the hat and int8 resamples)."""
+    if corr.dim() != 5:
+        raise ValueError(f"corr must be [B, C, H, W, T_full], got {tuple(corr.shape)}")
+    b, c, h, w, _ = corr.shape
+    if px.dim() != 4:
+        raise ValueError(f"px must be [B, C, T, A], got {tuple(px.shape)}")
+    t = px.shape[2]
+    if tuple(px.shape) != (b, c, t, h * w) or tuple(py.shape) != tuple(px.shape):
+        raise ValueError(
+            f"px/py must be [B, C, T, A] = {(b, c, t, h * w)}, got "
+            f"{tuple(px.shape)} and {tuple(py.shape)}")
+    if tuple(mask_t.shape) != (c, t):
+        raise ValueError(f"mask_t must be [C, T] = {(c, t)}, got {tuple(mask_t.shape)}")
+    check_corr(corr, t)
+    check_operands(corr, (("px", px), ("py", py), ("mask_t", mask_t)))
 
 
 def run(kernel, plain, corr, px, py, mask_t):

@@ -20,9 +20,11 @@ It returns the scores twice, as cls and cls_detached (the JAX head's second
 resample with px/py detached, os2d_tpu/models/head.py:300-302; the values are
 equal): one forward launch. The gradient of cls reaches corr, px and py; that
 of cls_detached reaches corr only. The backward is one launch per step of
-the C entry point, which enqueues a memset and two kernels: a scatter that
-computes dpx, dpy and dcorr's channels < T into a [B*C, T, H*W] scratch,
-and a transpose that writes dcorr whole from it.
+the C entry point, which enqueues three kernels: a scatter that computes dpx
+and dpy, a kernel that sums dcorr's channels < T into a [B*C, T, H*W]
+scratch (one warp owns each (b*c, t) plane and adds each cell's terms in
+the plain version's order, so dcorr repeats to the bit), and a transpose
+that writes dcorr whole from it.
 
 Backward contract (the kernel's):
   g, g_sum  [B, C, A] float32 contiguous (the gradient of cls; that of cls
@@ -77,7 +79,7 @@ def resample_correlation_backward(g, g_sum, corr, px, py, mask_t):
         return resample_backward_reference(g, g_sum, corr, px, py, mask_t, t)
     if corr.device.type != "cuda":
         raise ValueError(f"no resample backward kernel for device {corr.device}")
-    # the scatter's sums in the library's layout; the entry point clears it
+    # dcorr's channels < T in the library's layout; every value is written
     scratch = torch.empty((b * c, t, h * w), dtype=torch.float32, device=corr.device)
     dcorr = torch.empty_like(corr)
     dpx = torch.empty_like(px)
@@ -112,6 +114,12 @@ class _ResampleTrain(torch.autograd.Function):
         return dcorr, dpx, dpy, None, None
 
 
+def records_graph(*tensors):
+    """Whether autograd records a graph through any of `tensors`: where it
+    does, the int8 tier (no gradient) runs as "default"."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
 def resample_correlation_autograd(corr, px, py, mask_t, precision: str):
     """(cls, cls_detached), each [B, C, H, W], from the full corr tensor
     [B, C, H, W, T_full] (the prefix t < T = px.shape[2] is read) at the
@@ -119,7 +127,6 @@ def resample_correlation_autograd(corr, px, py, mask_t, precision: str):
     "default" where a graph is recorded (see the module docstring)."""
     if precision not in FORWARD:
         raise ValueError(f"unknown resample_precision {precision!r}")
-    if precision == "int8" and torch.is_grad_enabled() and (
-            corr.requires_grad or px.requires_grad or py.requires_grad):
+    if precision == "int8" and records_graph(corr, px, py):
         precision = "default"
     return _ResampleTrain.apply(corr, px, py, mask_t, precision)

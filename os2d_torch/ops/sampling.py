@@ -7,7 +7,8 @@ Counterpart of `os2d_tpu/ops/sampling.py`. The resample itself runs through
 `resample_correlation_from_pxpy_reference` below), `ops/hat_resample.py`
 (bf16 hat-weight form; its CUDA kernel is held against
 `hat_resample_reference` below) or `ops/int8_resample.py` (the int8 hat
-form; its CUDA kernel is held against `int8_hat_resample_reference` below).
+form; its CUDA kernel is held against `int8_hat_resample_reference` below on
+px/py, and against `int8_hat_resample_theta_reference` on theta).
 `resample_correlation_map` and `resample_correlation_map_masked` take
 the [B, C, H, W, th, tw, 2] sampling grids of the Pallas kernels' contract
 (the head's `corr_interior_first=False` path) and run the tier's forward.
@@ -218,8 +219,13 @@ def resample_backward_reference(g, g_sum, corr, px, py, mask_t, t_count: int):
                 x0 - 1 + j, channel t,
     each product and sum rounded on its own, the sums over i and j in index
     order; the CUDA kernel (csrc/resample_backward.cu) computes dpx and dpy
-    in exactly this order and so agrees with this function to the bit, and
-    dcorr up to the order of its atomic sums.
+    in exactly this order and so agrees with this function to the bit. dcorr
+    sums each cell's terms per t in corner order (1,1), (1,2), (2,1), (2,2)
+    and, within a corner, over the anchors in ascending order: on the CPU
+    `scatter_add_` adds along the index dimension in order, and the kernel
+    adds in that order too, so the two agree to the bit (CUDA's
+    `scatter_add_` keeps no order, so on the card this function's dcorr
+    varies in its last bits from call to call).
 
     Args:
       g: [B, C, A] gradient of the scores, for dpx/dpy and dcorr.
@@ -347,6 +353,26 @@ def int8_hat_resample_reference(corr, px, py, mask_t):
         term = (r * _hat(px[:, :, t], iota_w)).sum(-1)
         scores = scores + term * mask_t[None, :, t, None]
     return scores.reshape(b, c, h, w)
+
+
+def int8_hat_resample_theta_reference(corr, theta, anchor_boxes, lattice, mask_t):
+    """`int8_hat_resample_reference` on the interior-first head's own
+    operands: px/py formed from theta by `ops.geometry.interior_sample_coords`
+    (the function the head uses at the other tiers), then the int8 hat form.
+
+    Args:
+      corr: [B, C, H, W, T_full] with T_full >= T (a prefix view is taken as
+        it is).
+      theta: [B, C, A, 6]; anchor_boxes: [A, 4]; lattice: [2, n], T = n * n
+        (see `interior_sample_coords`).
+      mask_t: [C, T].
+    Returns scores [B, C, H, W].
+    """
+    from .geometry import interior_sample_coords
+
+    _, _, h, w, _ = corr.shape
+    px, py = interior_sample_coords(theta, anchor_boxes, lattice, h, w)
+    return int8_hat_resample_reference(corr, px, py, mask_t)
 
 
 def grid_resample_operands(corr, grids_unit, pool_mask, border: int = 0):

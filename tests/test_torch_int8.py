@@ -15,6 +15,13 @@ the card by tests/test_torch_kernels_card.py and chip_smoke.py.
   equal to it to the bit.
 - The head at "int8" against JAX's head at "int8" (cls atol 1e-5); with a
   graph recorded the head runs "default", as JAX's train mode does.
+- The theta source (`resample_correlation_int8_theta`, the interior-first
+  head's): its plain version equals the int8 form on the px/py of the
+  head's former chain (written out here) to the bit, on identity,
+  near-identity, random and outside-the-map theta and maps of width 1, 5,
+  40 and 50; the head at "int8" with no graph hands the wrapper theta and
+  never calls the coordinate function (no [B, C, T, A] px/py), and calls
+  it at "default" and with a graph.
 - `prescreen_margin("int8", ...)` equal to JAX's in both compute dtypes
   (tests/test_torch_numeric_modes.py holds the other tiers).
 - A quantized bank through `Evaluator` equals its dequantized bank to the
@@ -49,7 +56,7 @@ from os2d_torch.engine import evaluate as teval
 from os2d_torch.models import Os2dConfig, Os2dModel, TransformNet
 from os2d_torch.models import head as thead
 from os2d_torch.models.from_jax import state_dict_from_jax, transform_net_state_dict_from_jax
-from os2d_torch.ops.int8_resample import resample_correlation_int8
+from os2d_torch.ops.int8_resample import resample_correlation_int8, resample_correlation_int8_theta
 from os2d_torch.ops.sampling import (
     INT8_ROW_SCALE,
     int8_hat_resample_reference,
@@ -179,6 +186,100 @@ def test_int8_banded_form_equals_plain_to_the_bit(kind, b, c, h, w):
     torch.testing.assert_close(_banded_int8(corr, px, py, mask),
                                int8_hat_resample_reference(corr[..., :t], px, py, mask),
                                rtol=0, atol=0)
+
+
+def _former_head_coords(theta, anchor_boxes, h, w):
+    """px, py [B, C, 121, A] as the interior-first head formed them before
+    the int8 tier took theta (models/head.py of the previous release), from
+    theta [B, C, A, 2, 3]."""
+    from os2d_torch.ops.geometry import clip_jax_grad
+    from os2d_torch.ops.sampling import linspace
+
+    b, c, a = theta.shape[:3]
+    ts = slice(2, 13)
+    th6 = theta.reshape(b, c, 1, a, 2, 3)
+    xs_int = linspace(-1.0, 1.0, 15)[ts]
+    ys_int = linspace(-1.0, 1.0, 15)[ts]
+    ux = xs_int.repeat_interleave(11)[None, None, :, None]
+    uy = ys_int.repeat(11)[None, None, :, None]
+    lx = th6[..., 0, 0] * ux + th6[..., 0, 1] * uy + th6[..., 0, 2]
+    ly = th6[..., 1, 0] * ux + th6[..., 1, 1] * uy + th6[..., 1, 2]
+    fb = anchor_boxes.reshape(1, 1, 1, a, 4)
+    fx_a = (fb[..., 2] - fb[..., 0]) / 2.0
+    fx_b = (fb[..., 2] + fb[..., 0]) / 2.0
+    fy_a = (fb[..., 3] - fb[..., 1]) / 2.0
+    fy_b = (fb[..., 3] + fb[..., 1]) / 2.0
+    gx = clip_jax_grad((lx * fx_a + fx_b) / (w - 1) * 2.0 - 1.0, -1.0, 1.0)
+    gy = clip_jax_grad((ly * fy_a + fy_b) / (h - 1) * 2.0 - 1.0, -1.0, 1.0)
+    return (gx + 1.0) * 0.5 * (w - 1), (gy + 1.0) * 0.5 * (h - 1)
+
+
+def _theta(kind, b, c, a, rng):
+    theta = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (b, c, a, 1))
+    if kind == "near_identity":
+        theta += (rng.rand(b, c, a, 6).astype(np.float32) - 0.5) * 0.1
+    elif kind == "random":
+        theta = rng.uniform(-1, 1, (b, c, a, 6)).astype(np.float32)
+    elif kind == "outside":  # translations of up to 3 box half-widths: many clipped samples
+        theta[..., 2] += rng.uniform(-3, 3, (b, c, a)).astype(np.float32)
+        theta[..., 5] += rng.uniform(-3, 3, (b, c, a)).astype(np.float32)
+    return theta
+
+
+THETA_CASES = [(kind, b, c, h, w) for kind in ("identity", "near_identity", "random", "outside")
+               for b, c, h, w in ((1, 2, 3, 1), (1, 2, 2, 5), (1, 1, 2, 40), (1, 1, 2, 50))]
+
+
+@pytest.mark.parametrize("kind,b,c,h,w", THETA_CASES)
+def test_int8_theta_plain_equals_the_former_pxpy_path(kind, b, c, h, w):
+    from os2d_torch.ops.sampling import linspace
+    from os2d_torch.structures.boxes import strided_anchor_grid
+
+    rng = np.random.RandomState(4)
+    a = h * w
+    corr = torch.from_numpy(np.tanh(rng.randn(b, c, h, w, 225)).astype(np.float32))
+    theta = torch.from_numpy(_theta(kind, b, c, a, rng))
+    mask = torch.from_numpy(rng.rand(c, 121).astype(np.float32))
+    boxes = strided_anchor_grid(w, h, 15.0, 15.0, 1.0, 1.0)
+    lattice = torch.stack([linspace(-1.0, 1.0, 15)[2:13]] * 2)
+    px, py = _former_head_coords(theta.reshape(b, c, a, 2, 3), boxes, h, w)
+    want = int8_hat_resample_reference(corr[..., :121], px.contiguous(), py.contiguous(), mask)
+    got = resample_correlation_int8_theta(corr[..., :121], theta, boxes, lattice, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_head_int8_hands_the_kernel_theta(monkeypatch):
+    """No graph at "int8": the wrapper gets theta [B, C, A, 6] and the
+    head's coordinate function (the [B, C, T, A] px/py) is not called; at
+    "default", and at "int8" with a graph, it is called once."""
+    fm, maps, _, net = _head_inputs()
+    head = thead.build_class_head([torch.from_numpy(m) for m in maps])
+    fm = torch.from_numpy(fm)
+    coords, thetas = [], []
+    original_coords = thead.interior_sample_coords
+    original_int8 = thead.resample_correlation_int8_theta
+
+    def counted_coords(*args):
+        coords.append(args[0].shape)
+        return original_coords(*args)
+
+    def recorded_int8(corr, theta, *args):
+        thetas.append(tuple(theta.shape))
+        return original_int8(corr, theta, *args)
+
+    monkeypatch.setattr(thead, "interior_sample_coords", counted_coords)
+    monkeypatch.setattr(thead, "resample_correlation_int8_theta", recorded_int8)
+    with torch.no_grad():
+        out = thead.head_forward(net, fm, head, resample_precision="int8")
+    b, h, w, _ = fm.shape
+    assert coords == [] and thetas == [(b, len(maps), h * w, 6)]
+    assert out["cls"].shape == (b, len(maps), h * w)
+    with torch.no_grad():
+        thead.head_forward(net, fm, head, resample_precision="default")
+    assert len(coords) == 1
+    net.requires_grad_(True)
+    thead.head_forward(net, fm, head, resample_precision="int8")
+    assert len(coords) == 2 and len(thetas) == 1
 
 
 def _tn_params(seed):

@@ -18,19 +18,28 @@ to the bit as well; it is held to rtol 1e-5, atol 1e-5, and to within 4e-3
 int8 kernel (`csrc/int8_hat_resample.cu`): quantizes each corner as it
 reads it and sums the two non-zero rows and columns of each sample with the
 plain version's roundings, so the two agree to the bit (asserted beside
-rtol 1e-5, atol 1e-6), on the forward cases, half-way hat weights and
-B*C above 65535; the int8 head on the card equals the CPU's, and with a
-graph recorded it runs the hat kernel instead.
+rtol 1e-5, atol 1e-6), from px/py on the forward cases, half-way hat
+weights and B*C above 65535, and from theta (forming px/py in registers
+with the card's roundings of the head's chain) on the ragged shapes and
+every bench level with identity, near-identity, random and
+outside-the-map theta; the int8 head on the card equals the CPU's, and
+with a graph recorded it runs the hat kernel instead.
 
-Backward (`csrc/resample_backward.cu`: a memset, a scatter kernel and a
-transpose kernel behind one entry point): computes dpx and dpy with the
+Backward (`csrc/resample_backward.cu`: a scatter kernel, a dcorr kernel and
+a transpose kernel behind one entry point): computes dpx and dpy with the
 plain version's roundings in its order, so those agree to the bit (asserted
-beside rtol 1e-5, atol 1e-6); dcorr is a scatter of fp32 atomic adds, whose
-order changes the last bits, so it is held to rtol 1e-5, atol 1e-6, with
-its channels >= T exactly zero. Cases: the ragged shapes, the training
-shape (B=4, C=16, 38x38, T=121 of 225) on uniform, near-identity, exact
-identity and collapsed inputs, integer coordinates and the borders,
-t_full 128 and t_full == T, B*C above 65535, and two calls in a row.
+beside rtol 1e-5, atol 1e-6); dcorr adds each cell's terms one at a time in
+the plain version's order, with no two threads adding into one value, so it
+equals the plain version run on the CPU to the bit (the card's
+scatter_add_ keeps no order: against the plain version on the card it is
+held to rtol 1e-5, atol 1e-6), with its channels >= T exactly zero, and two
+calls agree to the bit. Cases: the ragged shapes, the training shape (B=4,
+C=16, 38x38, T=121 of 225) on uniform, near-identity, exact identity and
+collapsed inputs, integer coordinates and the borders, t_full 128 and
+t_full == T, B*C above 65535, and two calls in a row. Two 3-step runs of
+TrainStep from one seed give the same weights to the bit under
+cudnn.deterministic (cuDNN's default algorithms sum the convolutions'
+gradients in no fixed order).
 
 The yuv420 wire (ops/pixel_format.py): its decode on the card equals the
 CPU's; an eval dispatch on a wire uploaded to the card launches the hat
@@ -169,6 +178,56 @@ def test_kernels_take_more_than_65535_planes(cuda_gen):
                                rtol=HAT_RTOL, atol=HAT_ATOL)
 
 
+def _theta_inputs(b, c, h, w, gen, kind):
+    """theta [B, C, H*W, 6] of the kind, the anchors' feature-map boxes and
+    the template lattice, as the interior-first head builds them."""
+    from os2d_torch.ops.sampling import linspace
+    from os2d_torch.structures.boxes import strided_anchor_grid
+    from os2d_torch.structures.feature_map import ALIGNER_RECEPTIVE_FIELD, ALIGNER_STRIDE
+
+    a = h * w
+    theta = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device="cuda").repeat(b, c, a, 1)
+    if kind == "near_identity":
+        theta += (torch.rand(b, c, a, 6, generator=gen, device="cuda") - 0.5) * 0.1
+    elif kind == "random":
+        theta = torch.rand(b, c, a, 6, generator=gen, device="cuda") * 2.0 - 1.0
+    elif kind == "outside":  # many samples clipped to the border
+        theta[..., 2] += (torch.rand(b, c, a, generator=gen, device="cuda") - 0.5) * 6.0
+        theta[..., 5] += (torch.rand(b, c, a, generator=gen, device="cuda") - 0.5) * 6.0
+    boxes = strided_anchor_grid(w, h, float(ALIGNER_RECEPTIVE_FIELD.w),
+                                float(ALIGNER_RECEPTIVE_FIELD.h), float(ALIGNER_STRIDE.w),
+                                float(ALIGNER_STRIDE.h), device="cuda")
+    lattice = torch.stack([linspace(-1.0, 1.0, 15, device="cuda")[2:13]] * 2)
+    return theta.contiguous(), boxes, lattice
+
+
+THETA_KINDS = ["identity", "near_identity", "random", "outside"]
+THETA_CASES = [(shape, kind) for shape in RAGGED + [(2, 16, h, w) for h, w in BENCH_FMS]
+               for kind in THETA_KINDS]
+
+
+@pytest.mark.parametrize("shape,kind", THETA_CASES)
+def test_int8_theta_kernel_matches_plain(shape, kind, cuda_gen):
+    """From theta, to the bit, with one launch; and equal to the kernel
+    from the px/py that the head's coordinate function forms on the card."""
+    from os2d_torch.ops.geometry import interior_sample_coords
+    from os2d_torch.ops.sampling import int8_hat_resample_theta_reference
+
+    b, c, h, w = shape
+    corr = _inputs(b, c, h, w, cuda_gen, "uniform")[0][..., :121]
+    mask_t = torch.rand(c, 121, generator=cuda_gen, device="cuda")
+    theta, boxes, lattice = _theta_inputs(b, c, h, w, cuda_gen, kind)
+    before = int8_resample.KERNEL.launches
+    got = int8_resample.resample_correlation_int8_theta(corr, theta, boxes, lattice, mask_t)
+    torch.cuda.synchronize()
+    assert int8_resample.KERNEL.launches == before + 1
+    want = int8_hat_resample_theta_reference(corr, theta, boxes, lattice, mask_t)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, want)
+    px, py = interior_sample_coords(theta, boxes, lattice, h, w)
+    assert torch.equal(got, int8_resample.resample_correlation_int8(corr, px, py, mask_t))
+
+
 @pytest.mark.parametrize("shape,kind", CASES + [((2, 3, 19, 23), "half"),
                                          ((2, 32800, 3, 2), "uniform")])
 def test_int8_kernel_matches_plain(shape, kind, cuda_gen):
@@ -254,7 +313,9 @@ def _backward_inputs(shape, gen, kind, t_full=225):
 
 def _backward_checked(inputs):
     """One wrapper call, held against the plain version: dpx/dpy to the bit,
-    dcorr at the tolerance with channels >= T exactly zero, one launch."""
+    dcorr at the tolerance (the card's plain version sums in no fixed
+    order) and to the bit against the plain version on the CPU, with
+    channels >= T exactly zero, one launch."""
     before = resample_grad.KERNEL.launches
     got = resample_grad.resample_correlation_backward(*inputs)
     torch.cuda.synchronize()
@@ -264,6 +325,8 @@ def _backward_checked(inputs):
     for name, x, y in zip(("dcorr", "dpx", "dpy"), got, want):
         torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL, msg=lambda m: f"{name}: {m}")
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    cpu_dcorr = resample_backward_reference(*(x.cpu() for x in inputs), t)[0]
+    torch.testing.assert_close(got[0].cpu(), cpu_dcorr, rtol=0, atol=0)
     assert not got[0][..., t:].any()
     return got
 
@@ -288,8 +351,21 @@ def test_backward_kernel_clears_its_scratch(cuda_gen):
     inputs = _backward_inputs((4, 16, 38, 38), cuda_gen, "near_identity")
     first = _backward_checked(inputs)
     second = _backward_checked(inputs)
-    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
-    torch.testing.assert_close(first[0], second[0], rtol=RTOL, atol=ATOL)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("shape,kind,t_full", [((4, 16, 38, 38), k, 225) for k in BACKWARD_KINDS]
+                         + [((2, 3, 19, 23), "near_identity", t) for t in (128, 121)]
+                         + [((2, 32800, 3, 2), "uniform", 128)])
+def test_backward_two_calls_equal_to_the_bit(shape, kind, t_full, cuda_gen):
+    """dcorr, dpx and dpy repeat to the bit: no two threads add into one
+    value."""
+    inputs = _backward_inputs(shape, cuda_gen, kind, t_full)
+    first = resample_grad.resample_correlation_backward(*inputs)
+    second = resample_grad.resample_correlation_backward(*inputs)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dcorr", "dpx", "dpy"), first, second):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("precision", ["default", "highest"])
@@ -561,10 +637,12 @@ def _train_arrays(gen, b=2, side=320, classes=4):
 def test_one_rank_nccl_step_matches_the_plain_step(cuda_gen, monkeypatch):
     """The data-parallel TrainStep over a one-rank nccl group (the gather
     and the gradient all_reduce through NCCL) takes the plain step's steps:
-    losses within rtol 2e-5, weights within rtol 1e-4, atol 1e-6. The
-    gradient norm is not held here: the backward's fp32 atomic adds move it
-    between two runs of the plain step alone (chip_smoke.py's phase
-    distributed reports by how much)."""
+    losses within rtol 2e-5, weights within rtol 1e-4, atol 1e-6. Both run
+    under cudnn.deterministic, so that each run of the test compares the
+    same numbers (under cuDNN's default algorithms the weights part in their
+    last bits from run to run, which moves the later steps' losses). The
+    gradient norm is not held: the data-parallel step sums the gradients in
+    another order."""
     import torch.distributed as dist
 
     from os2d_torch.config import get_default_cfg
@@ -582,6 +660,7 @@ def test_one_rank_nccl_step_matches_the_plain_step(cuda_gen, monkeypatch):
                  ("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(free_port()))):
         monkeypatch.setenv(k, v)
     init_distributed(backend="nccl", device="cuda:0", timeout_s=120)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     try:
         assert dist.get_backend() == "nccl"
         mesh = make_mesh()
@@ -604,23 +683,21 @@ def test_one_rank_nccl_step_matches_the_plain_step(cuda_gen, monkeypatch):
 
 
 # ---- the mAP gate's repeatability (tools/gate_repeatability_torch.py) ----
-# Measured on NVIDIA H100 80GB HBM3, 700 W, at the gate's recipe (batch 4,
-# 480x480, 8 classes): two models from one seed on the same batches have
-# equal first-step losses and part by 1.9e-9 in their weights after the
-# first step, 6e-8 from the fourth on and 2.4e-7 after 200 steps, with
-# cuDNN's default algorithms and with cudnn.deterministic alike; cuDNN's
-# weight gradients repeat to the bit, the backward kernel's dpx and dpy too,
-# its dcorr (fp32 atomic adds) does not; a saved state's bf16+fold eval
-# repeats to the bit.
+# Measured on NVIDIA H100 80GB HBM3, 700 W: with the backward's dcorr summed
+# in a fixed order, two models from one seed on the same batches have
+# equal weights under cudnn.deterministic, and part by 6e-8 after a step
+# under cuDNN's default algorithms (their gradient sums keep no order; with
+# the atomic dcorr before, 1.9e-9 after the first step and 2.4e-7 after 200).
 STEP_DRIFT_ATOL = 1e-6
 
 
 @pytest.mark.parametrize("deterministic", [False, True], ids=["default", "cudnn_deterministic"])
-def test_train_steps_repeat_but_for_the_dcorr_atomics(deterministic, cuda_gen):
-    """Two TrainSteps from the same weights on the same batches: the first
-    step's loss terms are equal (the forward repeats to the bit), the
-    weights stay within STEP_DRIFT_ATOL over 3 steps, and pinning cuDNN's
-    algorithms changes neither: the drift is the backward's dcorr atomics."""
+def test_train_steps_repeat(deterministic, cuda_gen):
+    """Two TrainSteps from the same weights on the same batches over 3
+    steps: the first step's loss terms equal to the bit (the forward
+    repeats); under cudnn.deterministic every loss term and every weight
+    equal to the bit, under cuDNN's default algorithms the weights within
+    STEP_DRIFT_ATOL."""
     from os2d_torch.config import get_default_cfg
     from os2d_torch.engine.objective import ObjectiveConfig
     from os2d_torch.engine.optimization import create_optimizer
@@ -646,8 +723,13 @@ def test_train_steps_repeat_but_for_the_dcorr_atomics(deterministic, cuda_gen):
         if k != "grad_norm":  # taken after the backward
             assert metrics_b[0][k] == v, k
     state_b = model_b.state_dict()
-    drift = max(float((v - state_b[k]).abs().max()) for k, v in model_a.state_dict().items())
-    assert drift <= STEP_DRIFT_ATOL
+    if deterministic:
+        assert metrics_a == metrics_b
+        for k, v in model_a.state_dict().items():
+            assert torch.equal(v, state_b[k]), k
+    else:
+        drift = max(float((v - state_b[k]).abs().max()) for k, v in model_a.state_dict().items())
+        assert drift <= STEP_DRIFT_ATOL
 
 
 def test_bf16_fold_eval_repeats_to_the_bit(cuda_gen):

@@ -17,6 +17,12 @@ tests/test_torch_kernels_card.py and chip_smoke.py.
 - The autograd Function `resample_correlation_autograd`: its cls takes the
   gradient to corr, px and py, its cls_detached to corr only, and its
   forward is the tier's.
+- The order of dcorr's sums, which the kernel reproduces: on the CPU
+  `scatter_add_` adds along the index dimension in order, and the plain
+  version's dcorr equals, to the bit, each cell's terms added one at a
+  time per t in corner order (1,1), (1,2), (2,1), (2,2) and, within a
+  corner, over the anchors in ascending order (numpy's unbuffered
+  `np.add.at`, the order of the kernel's dcorr warps).
 """
 
 import jax
@@ -179,3 +185,59 @@ def test_backward_refuses_a_bad_cotangent():
         resample_correlation_backward(
             torch.from_numpy(g)[:, :1], torch.from_numpy(g), torch.from_numpy(corr),
             torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(mask))
+
+
+def test_cpu_scatter_add_adds_in_index_order():
+    """fp32 sums whose value depends on their order: 1 + 2^25 - 2^25 is 0
+    in order and 1 in any order that adds the 1 last; every (b, c) row of a
+    wide tensor takes them in index order."""
+    src = torch.zeros(3, 4, 6000)
+    src[..., 0::3], src[..., 1::3], src[..., 2::3] = 1.0, 2.0 ** 25, -(2.0 ** 25)
+    index = torch.arange(6000).div(3, rounding_mode="floor").expand(3, 4, 6000).contiguous()
+    out = torch.zeros(3, 4, 2000).scatter_add_(2, index, src)
+    assert not out.any()
+
+
+def _dcorr_in_kernel_order(g_sum, px, py, mask, h, w, t_full):
+    """dcorr as the kernel's dcorr warps add it, in numpy: per (b, c, t),
+    per corner (i, j) in order (1,1), (1,2), (2,1), (2,2), each anchor's
+    term hy_i * (gd * hx_j) (both weights non-zero) added into its cell in
+    ascending anchor order."""
+    b, c, t, a = px.shape
+    f32 = np.float32
+    dcorr = np.zeros((b, c, a, t_full), f32)
+
+    def weight(p, k, n):
+        i = (np.floor(p) - f32(1)) + f32(k)
+        r = f32(1) - np.abs(p - i)
+        inside = (i >= 0) & (i < n)
+        return np.where(inside, np.maximum(r, f32(0)), f32(0)).astype(f32), i
+
+    for bi in range(b):
+        for ci in range(c):
+            for ti in range(t):
+                acc = np.zeros(a, f32)
+                x, y = px[bi, ci, ti], py[bi, ci, ti]
+                gd = (g_sum[bi, ci] * mask[ci, ti]).astype(f32)
+                for ki, kj in ((1, 1), (1, 2), (2, 1), (2, 2)):
+                    hx, xi = weight(x, kj, w)
+                    hy, yi = weight(y, ki, h)
+                    keep = (hx != 0) & (hy != 0)
+                    term = (hy * (gd * hx).astype(f32)).astype(f32)
+                    cells = (yi * w + xi)[keep].astype(np.int64)
+                    np.add.at(acc, cells, term[keep])
+                dcorr[bi, ci, :, ti] = acc
+    return dcorr.reshape(b, c, h, w, t_full)
+
+
+@pytest.mark.parametrize("shape,kind", [((2, 3, 6, 7), k) for k in
+                                        ("uniform", "near_identity", "integer", "collapsed")]
+                         + [((1, 2, 1, 7), "uniform"), ((1, 2, 6, 1), "border")])
+def test_dcorr_sums_in_the_kernels_order(shape, kind):
+    corr, px, py, mask, g = make_inputs(*shape, kind, seed=5)
+    g_sum = (g + np.random.RandomState(6).randn(*g.shape)).astype(np.float32)
+    dcorr = resample_correlation_backward(
+        torch.from_numpy(g), torch.from_numpy(g_sum), torch.from_numpy(corr),
+        torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(mask))[0]
+    want = _dcorr_in_kernel_order(g_sum, px, py, mask, shape[2], shape[3], T_FULL)
+    np.testing.assert_array_equal(dcorr.numpy(), want)

@@ -4,6 +4,7 @@
     python3 tools/bench_torch_resample.py                      # this checkout, largest level
     python3 tools/bench_torch_resample.py --levels all --parent DIR --variants rows16,chunk16
     python3 tools/bench_torch_resample.py --kernels backward --parent DIR [--profile]
+    python3 tools/bench_torch_resample.py --kernels int8 --levels all --parent DIR
 
 Forward (`--kernels forward` or `all`): inputs of the bench protocol's
 levels (B=2, C=16, T=121 of 225 channels, fm from the 1280x960 image at
@@ -13,6 +14,19 @@ the head's identity transform, jittered by up to 0.25 px (the main path
 with random weights has the identity transform exactly). For each level,
 kind and kernel package it prints one JSON line: CUDA-event ms per wrapper
 call and the max error against the plain version (ops/sampling.py).
+
+int8 (`--kernels int8` or `all`): the int8 kernel at the same levels on
+theta of three kinds, "identity" (the main path with random weights),
+"near_identity" (each entry moved by up to 0.05) and "random" (entries in
+[-1, 1]), with the anchors' boxes and the template lattice of the head
+(`chip_smoke.random_theta_inputs`). A
+package whose wrapper takes theta (`resample_correlation_int8_theta`) gets
+theta; an older one gets the px/py that this checkout's
+`ops.geometry.interior_sample_coords` forms from it (their time, which
+the older head spent building px/py, is not in its row). The packages run
+in turns (each, then the same in reverse); each turn prints one JSON line
+with ms per call and whether the result equals this checkout's plain
+version to the bit.
 
 Backward (`--kernels backward` or `all`): the default train recipe's shape
 (B=4, C=16, fm 38x38, T=121 of 225) on "uniform", "near_identity" and
@@ -44,8 +58,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 LEVELS = [(30, 40), (38, 50), (48, 64), (60, 80), (72, 96), (84, 112), (96, 128)]  # fm H x W
-TILE, BWD = "resample_tile.cuh", "resample_backward.cu"
+TILE, BWD, INT8 = "resample_tile.cuh", "resample_backward.cu", "int8_hat_resample.cu"
 VARIANTS = {  # name: edits (file in csrc/, old text, new text)
     "rows16": [(TILE, "kTileRows = 8;", "kTileRows = 16;")],
     "rows4": [(TILE, "kTileRows = 8;", "kTileRows = 4;")],
@@ -62,20 +77,31 @@ VARIANTS = {  # name: edits (file in csrc/, old text, new text)
     # the backward's transpose with tiles of 64 or 16 anchors
     "bwd_tile64": [(BWD, "kTransposeTile = 32;", "kTransposeTile = 64;")],
     "bwd_tile16": [(BWD, "kTransposeTile = 32;", "kTransposeTile = 16;")],
-    # ablations of the backward, for where its time goes (they drop work, so
-    # their results are wrong): no dcorr adds; no pass for the ties
-    "bwd_no_adds": [(BWD, "setp.neu.f32 q, %1, 0f00000000;", "setp.neu.f32 q, %1, %1;")],
+    # the dcorr kernel: 8 planes a block; loads 2 or 8 chunks ahead; the
+    # ballots on every chunk (no run test)
+    "bwd_dcorr_warps8": [(BWD, "kDcorrWarps = 4;", "kDcorrWarps = 8;")],
+    "bwd_depth2": [(BWD, "kDcorrDepth = 4;", "kDcorrDepth = 2;")],
+    "bwd_depth8": [(BWD, "kDcorrDepth = 4;", "kDcorrDepth = 8;")],
+    "bwd_no_runs": [(BWD, "bool runs = false;\n  if (tag != nullptr) {",
+                     "bool runs = false;\n  if (false) {")],
+    # an ablation of the backward, for where its time goes (it drops work,
+    # so its results are wrong): no pass for the ties
     "bwd_no_ties": [(BWD, "while (tie_chunks) {", "while (false && tie_chunks) {")],
+    # the int8 kernel: chunks of 4 or 16 template points
+    "int8_chunk4": [(INT8, "kChunk = 8;", "kChunk = 4;")],
+    "int8_chunk16": [(INT8, "kChunk = 8;", "kChunk = 16;")],
 }
 
 
 BACKWARD_SHAPE = (4, 16, 38, 38)  # B, C, fm H, fm W of the default train recipe
-SOURCES = {"forward": ["resample.cu", "hat_resample.cu"], "backward": ["resample_backward.cu"]}
+SOURCES = {"forward": ["resample.cu", "hat_resample.cu"], "backward": ["resample_backward.cu"],
+           "int8": ["int8_hat_resample.cu"]}
 
 
 def load_package(root, alias):
     """Import root/os2d_torch under the module name `alias`; returns its
-    (ops.resample, ops.hat_resample, ops.cuda, ops.resample_grad) modules."""
+    (ops.resample, ops.hat_resample, ops.cuda, ops.resample_grad,
+    ops.int8_resample) modules."""
     pkg = root / "os2d_torch"
     spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
                                                   submodule_search_locations=[str(pkg)])
@@ -83,7 +109,8 @@ def load_package(root, alias):
     sys.modules[alias] = module
     spec.loader.exec_module(module)
     return tuple(importlib.import_module(f"{alias}.ops.{m}")
-                 for m in ("resample", "hat_resample", "cuda", "resample_grad"))
+                 for m in ("resample", "hat_resample", "cuda", "resample_grad",
+                           "int8_resample"))
 
 
 def variant_root(name):
@@ -127,6 +154,44 @@ def make_inputs(h, w, kind, gen, b=2, c=16, t_side=11):
         py = (ys.reshape(-1).float() + off_y[:, None] + jitter()).clamp(0, h - 1)
     mask_t = torch.full((c, t), 1.0 / t, device="cuda")
     return corr, px.contiguous(), py.contiguous(), mask_t
+
+
+def bench_int8(packages, gen, levels, iters):
+    """The packages' int8 kernel in turns at each level on theta of each
+    kind, one line a turn."""
+    import torch
+
+    from chip_smoke import random_theta_inputs
+    from os2d_torch.ops.geometry import interior_sample_coords
+    from os2d_torch.ops.sampling import int8_hat_resample_theta_reference
+
+    order = list(packages) + list(reversed(packages))
+    for h, w in levels:
+        for kind in ("identity", "near_identity", "random"):
+            corr = make_inputs(h, w, "uniform", gen)[0]
+            theta, boxes, lattice = random_theta_inputs(2, 16, h, w, gen, kind)
+            mask_t = torch.full((16, 121), 1.0 / 121, device="cuda")
+            prefix = corr[..., :121]
+            px, py = interior_sample_coords(theta, boxes, lattice, h, w)
+            want = int8_hat_resample_theta_reference(prefix, theta, boxes, lattice, mask_t)
+            for turn, name in enumerate(order):
+                mod = packages[name][4]
+                if hasattr(mod, "resample_correlation_int8_theta"):
+                    def fn():
+                        return mod.resample_correlation_int8_theta(prefix, theta, boxes,
+                                                                   lattice, mask_t)
+                    source = "theta"
+                else:
+                    def fn():
+                        return mod.resample_correlation_int8(prefix, px, py, mask_t)
+                    source = "px/py"
+                got = fn()
+                torch.cuda.synchronize()
+                row = {"kernel": "int8", "fm": f"{h}x{w}", "kind": kind, "turn": turn,
+                       "package": name, "source": source, "bit_equal": torch.equal(got, want),
+                       "ms": cuda_ms(fn, iters)}
+                print(json.dumps(row), flush=True)
+            del corr, prefix, theta, px, py, want
 
 
 def cuda_ms(fn, iters):
@@ -225,7 +290,7 @@ def main(argv):
     ap.add_argument("--variants", default="", help=f"comma-separated, of {sorted(VARIANTS)}")
     ap.add_argument("--levels", choices=["largest", "all"], default="largest")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--kernels", choices=["forward", "backward", "all"], default="all")
+    ap.add_argument("--kernels", choices=["forward", "backward", "int8", "all"], default="all")
     ap.add_argument("--profile", action="store_true",
                     help="the backward's device time by kernel (torch.profiler)")
     args = ap.parse_args(argv)
@@ -240,7 +305,7 @@ def main(argv):
         roots[name] = variant_root(name)
     packages = {name: load_package(root, f"resample_bench_{name}")
                 for name, root in roots.items()}
-    parts = ["forward", "backward"] if args.kernels == "all" else [args.kernels]
+    parts = ["forward", "backward", "int8"] if args.kernels == "all" else [args.kernels]
     sources = [src for part in parts for src in SOURCES[part]]
     with ThreadPoolExecutor(len(packages)) as pool:
         logs = dict(zip(packages, pool.map(lambda p: p[2].build_all(sources),
@@ -251,19 +316,21 @@ def main(argv):
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    levels = LEVELS if args.levels == "all" else LEVELS[-1:]
     if "backward" in parts:
         bench_backward(packages, gen, args.iters, args.profile)
+    if "int8" in parts:
+        bench_int8(packages, gen, levels, args.iters)
     plain_resample, plain_hat = packages["tree"][0], packages["tree"][1]
     plain = {"gather": plain_resample.resample_correlation_from_pxpy_reference,
              "hat": plain_hat.hat_resample_reference}
-    levels = LEVELS if args.levels == "all" else LEVELS[-1:]
     for h, w in levels if "forward" in parts else []:
         for kind in ("uniform", "near_identity"):
             corr, px, py, mask_t = make_inputs(h, w, kind, gen)
             inputs = (corr[..., :px.shape[2]], px, py, mask_t)
             del corr
             want = {k: fn(*inputs) for k, fn in plain.items()}
-            for name, (resample, hat_resample, _) in packages.items():
+            for name, (resample, hat_resample, *_) in packages.items():
                 for kernel, fn in (("gather", resample.resample_correlation),
                                    ("hat", hat_resample.resample_correlation_hat)):
                     row = {"fm": f"{h}x{w}", "kind": kind, "package": name, "kernel": kernel}

@@ -124,8 +124,12 @@ def match_detections(ref, cur):
 
 
 def train(dataset, args, logger):
-    """The port's model trained at fp32 for args.train_steps steps; returns
-    its state_dict."""
+    """The port's model trained at fp32 for args.train_steps steps, under
+    cuDNN's deterministic algorithms (so that a seed gives one trained
+    state, and the configs' dmAPs repeat from run to run); returns its
+    state_dict."""
+    import torch
+
     from os2d_torch.config import get_default_cfg
     from os2d_torch.data.dataloader import build_train_dataloader_from_config
     from os2d_torch.engine.objective import ObjectiveConfig
@@ -144,11 +148,16 @@ def train(dataset, args, logger):
         loader, _ = build_train_dataloader_from_config(cfg, dataset, seed=0)
         optimizer = create_optimizer(cfg.train.optim, trainable_parameters(model, cfg.train))
         step = TrainStep(model, ObjectiveConfig(), optimizer, cfg.train)
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
         t0 = time.time()
-        for i in range(args.train_steps):
-            meters = train_one_batch(loader.get_batch(i % len(loader)), step, logger)
-            if i % 50 == 0:
-                print(f"train step {i}: loss={meters['loss']:.4f}", flush=True)
+        try:
+            for i in range(args.train_steps):
+                meters = train_one_batch(loader.get_batch(i % len(loader)), step, logger)
+                if i % 50 == 0:
+                    print(f"train step {i}: loss={meters['loss']:.4f}", flush=True)
+        finally:
+            torch.backends.cudnn.deterministic = saved
         print(f"trained {args.train_steps} steps in {time.time() - t0:.1f}s, "
               f"final loss {meters['loss']:.4f}", flush=True)
         model.train_mode(False)
