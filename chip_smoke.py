@@ -184,8 +184,8 @@ Phases, each printing one JSON line:
               (a) one nccl rank on cuda:0 takes DIST_STEPS data-parallel
               TrainSteps at phase 10's recipe (batch 4, default tier,
               margin_pos 1.0) from the weights of the plain TrainStep that
-              this process takes on the same batches, both under
-              cudnn.deterministic (a second plain run equal to the bit): the
+              this process takes on the same batches, both under the port's
+              defaults (a second plain run equal to the bit): the
               loss terms within rtol 2e-5, weights within rtol 1e-4, atol
               1e-6 (the gradient norm is reported); s/step of the
               data-parallel and the plain step in turns; then phase 4's
@@ -292,6 +292,27 @@ Then the last modules of the JAX package (phases 30-32):
               and with "pickle", each read back, timed: net and optimizer
               state bit-equal, and through load_checkpoint_file into a card
               model and a fresh optimizer, bit-equal.
+ 33. experiments  the experiment launchers' twins on a planted tree in the
+              GroZi layout written under build/ (GROZI_PLANTED: scenes of
+              3264x2448, GroZi's source size, read at the published 1280 px;
+              its path as main's DATA_PATH): the first job of
+              experiments/launcher_grozi_eval_torch.py --no-launch (grozi-val-
+              new-cl at 1280 px, the default 7-level pyramid, Os2dConfig()'s
+              full width) with init.model a reference-layout .pth of
+              Os2dModel(Os2dConfig(), seed=1)'s weights, run through
+              os2d_torch.main.main(argv) in this process, its log written as
+              the launcher's job script tees it: mAP@0.50 >= 0.9 on the
+              planted patches, read back by experiments/launcher_eval_
+              collect_torch.py from the log, and at least one hat launch per
+              level; then the first job of experiments/launcher_exp1_torch.py
+              (lossCL, the simplified affine model) from a backbone-only .pth
+              of the same weights, cut to EXPERIMENT_TRAIN_STEPS iterations:
+              finite losses, one backward launch per step.
+ 34. parity_runbook  tools/parity_release_torch.py on the card at the
+              published protocol (SCALE 1280, the default pyramid) with the
+              reference-layout .pth and the same tree: --tol 100 prints
+              "parity_gate": "PASS" and exits 0, --tol 0 "FAIL" and exits 1;
+              the row's mAP and the seconds of each run.
 Phase 2 also holds the resample's backward (csrc/resample_backward.cu: one
 entry point that enqueues a scatter kernel, a dcorr kernel and a transpose
 kernel) against its plain version: dpx, dpy and dcorr at rtol 1e-5, atol
@@ -307,24 +328,33 @@ B*C = 65600.
 After phase 11:
      determinism  two backward calls on phase 9's captured inputs, and two
               DETERMINISM_STEPS-step TrainSteps from one seed on the same
-              batches (the train recipe of phase 10, margin_pos 1.0), with
-              cuDNN's default algorithms and with cudnn.deterministic:
-              dcorr, dpx, dpy and every weight compared to the bit. It fails
-              unless the backward's parts and, under cudnn.deterministic,
-              the weights are equal; under the default algorithms (whose
-              gradient sums keep no order) it reports how far they part.
+              batches (the train recipe of phase 10, margin_pos 1.0), under
+              the port's defaults with no flag set and under
+              cudnn.deterministic: dcorr, dpx, dpy, every loss and every
+              weight compared to the bit; it fails unless all are equal.
+              Then the per-layer table (tools/trace_conv_determinism_torch.
+              py): every convolution of one step at the default recipe's
+              shapes, each distinct one's input and weight gradients twice
+              under cuDNN's default algorithms and under the port's rule
+              (models/resnet.py: conv2d_backward), whether each repeats to
+              the bit (it fails if one does not under the port's rule) and
+              its ms; and TrainStep s/step on phase 11's batch under the
+              port's defaults, with cudnn.deterministic pinned for the
+              whole step, and with F.conv2d's own gradients (cuDNN's
+              default algorithms, not repeatable), in turns.
 Launch counts are set to 0 just before each of phases 3-7, 9-11 and 13-19
 (each dispatch of phase 14) and read just after it, around each step of
 phase 17, each call of phase 21, in each rank of phase 22 its steps and
 each eval, around each card run and each set of timed turns of phases
 23-26, around phase 27's turns, each counted dispatch of phase 28 and phase
-29's card runs and around phase 30's turns and its yuv420 train step; a
-phase whose kernel was not launched fails (phases 27-29: neither the hat
-nor the gather kernel). The kernels line counts the launches of the timed
+29's card runs, around phase 30's turns and its yuv420 train step, and
+around each job of phase 33 and each runbook run of phase 34; a phase
+whose kernel was not launched fails (phases 27-29: neither the hat nor the
+gather kernel). The kernels line counts the launches of the timed
 dispatches of phases 6 (hat), 7 (gather) and 23 (int8) and of phase 10's
 loop (backward), with those of phases 21 and 27-29 added to the hat and the
-gather, those of phase 22's ranks to all three, and those of phase 30 to
-the hat and the backward.
+gather, those of phase 22's ranks to all three, and those of phases 30 and
+33-34 to the hat and the backward.
 Then one {"kernels": [...]} line, the whole run's wall time
 ({"phase": "wall"}), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
@@ -391,6 +421,9 @@ TRAIN_TIMED_STEPS = 6
 TRAIN_EVAL_IMAGES = 2
 TRAIN_CPU_RTOL = 2e-3
 DETERMINISM_STEPS = 3  # train steps of each of the two runs compared to the bit
+# rounds of (port's defaults, global pin, cuDNN's defaults and back) of
+# DETERMINISM_TIMED_STEPS timed steps each in phase determinism
+DETERMINISM_TIMED_ROUNDS, DETERMINISM_TIMED_STEPS = 3, 3
 # random weights score every anchor far above 0.6 against every class,
 # positives and negatives alike, whatever is planted; at the recipe's
 # margin_pos 0.6 no positive has a loss, and the cls gradient (the backward
@@ -1292,7 +1325,7 @@ def _detect_and_evaluate(model, loader, batch, cfg, mesh=None):
 def distributed_rank(mesh, inputs):
     """One rank of phase distributed, in a process of its own: DIST_STEPS
     data-parallel TrainSteps at the default tier from the phase's start
-    weights on its global batches under cudnn.deterministic, then, in turns with the plain step on the
+    weights on its global batches, then, in turns with the plain step on the
     same weights when inputs["time_plain"], the timed steps; then the eval of
     each axis in inputs["eval_axes"] at "highest". Returns the metrics, a
     digest of the weights, the packed detections and mAPs, s/step and each
@@ -1332,15 +1365,8 @@ def distributed_rank(mesh, inputs):
     step = TrainStep(model, objective, optimizer, cfg.train, mesh=mesh)
     prepared = [prepare_batch_arrays(b, device) for b in inputs["batches"]]
     reset_counts()
-    # the held steps under cudnn.deterministic, as the plain reference takes
-    # them; the timed ones below under cuDNN's default algorithms
-    saved_deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        out["metrics"] = [step(*p) for p in prepared]
-        sync()
-    finally:
-        torch.backends.cudnn.deterministic = saved_deterministic
+    out["metrics"] = [step(*p) for p in prepared]
+    sync()
     out["train_launches"] = read_counts()
     out["digest"] = _state_digest(model)
     if mesh.rank == 0:
@@ -1408,29 +1434,24 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
     from os2d_torch.parallel.spawn import run_local_group
 
     # the plain single-process reference, twice from the start weights that
-    # the ranks load, under cudnn.deterministic as the ranks' held steps: so
-    # every run of the phase compares the same numbers (under cuDNN's default
-    # algorithms the weights part in their last bits from run to run, and
-    # over DIST_STEPS steps that has moved a loss term by 6e-5 relative on
-    # an H100). The second run must repeat the first to the bit.
+    # the ranks load; training repeats to the bit under the port's defaults,
+    # so the second run must repeat the first to the bit. (b) runs two
+    # images a rank against the reference's four: models/resnet.py:
+    # wgrad_1x1_gemm makes a batch's 1x1 weight gradients the sum of its
+    # halves', as the two ranks add them (with one GEMM over the batch a
+    # threshold of the step-3 loss flipped, 6.195e-5 off on an H100)
     start_path = os.path.join(work, "start.pth")
     runs = []
-    saved_deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        for _ in range(2):
-            ref_model = Os2dModel(Os2dConfig(), device=device, seed=DIST_SEED)
-            if not runs:
-                torch.save({k: v.detach().cpu() for k, v in ref_model.state_dict().items()},
-                           start_path)
-            ref_opt = create_optimizer(train_cfg.train.optim,
-                                       trainable_parameters(ref_model, train_cfg.train))
-            ref_step = TrainStep(ref_model, ObjectiveConfig(margin_pos=FIRST_STEP_MARGIN_POS),
-                                 ref_opt, train_cfg.train)
-            runs.append(([ref_step(*prepare_batch_arrays(b, device)) for b in batches],
-                         ref_model))
-    finally:
-        torch.backends.cudnn.deterministic = saved_deterministic
+    for _ in range(2):
+        ref_model = Os2dModel(Os2dConfig(), device=device, seed=DIST_SEED)
+        if not runs:
+            torch.save({k: v.detach().cpu() for k, v in ref_model.state_dict().items()},
+                       start_path)
+        ref_opt = create_optimizer(train_cfg.train.optim,
+                                   trainable_parameters(ref_model, train_cfg.train))
+        ref_step = TrainStep(ref_model, ObjectiveConfig(margin_pos=FIRST_STEP_MARGIN_POS),
+                             ref_opt, train_cfg.train)
+        runs.append(([ref_step(*prepare_batch_arrays(b, device)) for b in batches], ref_model))
     (ref_metrics, ref_model), (rerun_metrics, _) = runs
     ref_final = {k: v.detach().clone() for k, v in ref_model.state_dict().items()}
     del runs, ref_model, ref_step, ref_opt
@@ -1533,7 +1554,7 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
     ra, rb = report["a_nccl_1_rank"], report["b_gloo_2_ranks_on_cuda0"]
     failures = []
     if not report["plain_rerun_bit_equal"]:
-        failures.append(f"the plain step's rerun differs under cudnn.deterministic: "
+        failures.append(f"the plain step's rerun differs: "
                         f"{worst([{'metrics': rerun_metrics}], list(ref_metrics[0]))}")
     if not ra["loss_max_rel_err"] <= DIST_LOSS_RTOL:
         failures.append(f"(a) losses off the plain step by {worst([a], loss_keys)}")
@@ -2681,6 +2702,268 @@ def last_modules(counts, ctx):
     return total
 
 
+# phases 33-34, the entry surfaces: a planted tree in the GroZi layout
+# (grozi/src/3264/*.jpg, classes/grozi.csv, classes/images), its scenes at
+# GroZi's source size (so the dataset reads them as they are) and read at the
+# published 1280-px scale, where a source pixel is 1280/3264 of a level-1.0
+# pixel: class patches of GROZI_BLOCKS x GROZI_BLOCKS colour blocks of
+# GROZI_SOURCE_BLOCK px (GROZI_LEVEL_BLOCK px at level 1.0, 240 px a patch,
+# the class image size), the class images the same patches, planted at
+# level-1.0 positions on multiples of 80 px (the anchors' 16-px grid, whole
+# source pixels) as (x0, y0, class) per image; split val-new-cl for the eval
+# jobs and train for the training job
+GROZI_SOURCE = (3264, 2448)
+GROZI_BLOCKS, GROZI_LEVEL_BLOCK, GROZI_SOURCE_BLOCK = 12, 20, 51
+GROZI_PLANTED = {
+    0: ("val-new-cl", [(80, 80, 0), (720, 400, 1)]),
+    1: ("val-new-cl", [(400, 160, 2), (880, 560, 3)]),
+    2: ("train", [(80, 80, 0), (720, 400, 1)]),
+    3: ("train", [(400, 160, 2), (880, 560, 3)]),
+    4: ("train", [(160, 400, 1), (800, 80, 3)]),
+    5: ("train", [(560, 480, 0), (80, 640, 2)]),
+}
+EXPERIMENT_TRAIN_STEPS = 3  # the training job's cut: train.optim.max_iter
+EXPERIMENT_MIN_MAP = 0.9
+
+
+def write_grozi_planted_tree(data_path):
+    """GROZI_PLANTED written under data_path in the GroZi layout that
+    os2d_torch.data.dataset.build_grozi_dataset reads."""
+    import numpy as np
+    import pandas as pd
+    from PIL import Image
+
+    rng = np.random.RandomState(33)
+    root = os.path.join(data_path, "grozi")
+    os.makedirs(os.path.join(root, "src", str(GROZI_SOURCE[0])), exist_ok=True)
+    os.makedirs(os.path.join(root, "classes", "images"), exist_ok=True)
+    classes = sorted({cid for _, plants in GROZI_PLANTED.values() for _, _, cid in plants})
+    patches = {}
+    for cid in classes:
+        blocks = rng.randint(0, 255, (GROZI_BLOCKS, GROZI_BLOCKS, 3), np.uint8)
+        patches[cid] = np.kron(blocks, np.ones((GROZI_SOURCE_BLOCK, GROZI_SOURCE_BLOCK, 1),
+                                               np.uint8))
+        Image.fromarray(patches[cid]).save(
+            os.path.join(root, "classes", "images", f"{cid}.jpg"), quality=95)
+    w, h = GROZI_SOURCE
+    side = GROZI_BLOCKS * GROZI_SOURCE_BLOCK
+    to_source = GROZI_SOURCE_BLOCK / GROZI_LEVEL_BLOCK
+    rows = []
+    for image_id, (split, plants) in sorted(GROZI_PLANTED.items()):
+        scene = np.kron(rng.randint(0, 60, (h // 3, w // 3, 3), np.uint8),
+                        np.ones((3, 3, 1), np.uint8))
+        for x0, y0, cid in plants:
+            sx, sy = round(x0 * to_source), round(y0 * to_source)
+            scene[sy:sy + side, sx:sx + side] = patches[cid]
+            rows.append(dict(imageid=image_id, imagefilename=f"{image_id}.jpg", classid=cid,
+                             classfilename=f"{cid}.jpg", gtbboxid=len(rows), difficult=0,
+                             lx=sx / w, ty=sy / h, rx=(sx + side) / w, by=(sy + side) / h,
+                             split=split))
+        Image.fromarray(scene).save(
+            os.path.join(root, "src", str(GROZI_SOURCE[0]), f"{image_id}.jpg"), quality=95)
+    pd.DataFrame(rows).to_csv(os.path.join(root, "classes", "grozi.csv"), index=False)
+
+
+def _load_script(relative_path):
+    """A script of this checkout (experiments/, tools/) as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relative_path)
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _job_argv(queue_job, **overrides):
+    """The argv of `python -m os2d_torch.main` in a job of a launcher twin's
+    queue, with `overrides` (dotted keys) appended."""
+    import shlex
+
+    _, _, commands, _ = queue_job
+    tokens = shlex.split(commands[0])
+    if tokens[:3] != ["python", "-m", "os2d_torch.main"]:
+        raise SystemExit(f"experiments: a job runs {tokens[:3]}, not os2d_torch.main")
+    for k, v in overrides.items():
+        tokens[3:] += [k, str(v)]
+    return tokens[3:]
+
+
+def entry_surfaces(counts, device="cuda"):
+    """Phases 33 (experiments) and 34 (parity_runbook) in a directory of
+    their own under build/: the planted GroZi tree, a reference-layout .pth
+    of Os2dModel(Os2dConfig(), seed=1)'s weights and a backbone-only .pth of
+    its torchvision-named backbone. `counts` as for model_options. Returns
+    {kernel: launches} of both phases. With device="cpu" the jobs and the
+    runbook run on the CPU (the kernels' plain versions: no launch to
+    count)."""
+    import contextlib
+    import io
+    import logging
+
+    import numpy as np
+    import torch
+
+    from os2d_torch import main as port_main
+    from os2d_torch.engine import train as train_module
+    from os2d_torch.models import Os2dConfig, Os2dModel
+    from os2d_torch.ops.cuda import BUILD_DIR
+    from os2d_torch.utils import launcher
+
+    total = {}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    saved_data_path = os.environ.get("DATA_PATH")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        data_path = os.path.join(work, "data")
+        write_grozi_planted_tree(data_path)
+        source = Os2dModel(Os2dConfig(), device=device, seed=1)
+        ref_path = os.path.join(work, "os2d_v2-train.pth")
+        torch.save({"net": reference_layout(source.state_dict())}, ref_path)
+        backbone_path = os.path.join(work, "backbone.pth")
+        torch.save({k: v.detach().cpu() for k, v in source.backbone.state_dict().items()},
+                   backbone_path)
+        del source
+        saved_device = os.environ.get("OS2D_DEVICE")
+        os.environ["DATA_PATH"], os.environ["OS2D_DEVICE"] = data_path, device
+        try:
+            # ---- 33. experiments: the launcher twins' first jobs through main ----
+            t_phase = time.perf_counter()
+            grozi_eval = _load_script("experiments/launcher_grozi_eval_torch.py")
+            eval_job = grozi_eval.build_jobs(
+                grozi_eval.create_args_parser().parse_args(["--no-launch"])).jobs[0]
+            dataset = "grozi-val-new-cl"
+            eval_root = os.path.join(work, "output", "eval")
+            log_dir = os.path.join(eval_root, dataset)
+            os.makedirs(log_dir)
+            eval_argv = _job_argv(eval_job, **{"init.model": ref_path, "output.path": log_dir})
+            # the job's stdout as the launcher's job script tees it
+            handler = logging.FileHandler(os.path.join(log_dir, f"{eval_job[3]}out.txt"))
+            handler.setFormatter(logging.Formatter(
+                "%(asctime)s %(name)s %(levelname)s: %(message)s"))
+            os2d_logger = logging.getLogger("OS2D")
+            os2d_logger.addHandler(handler)
+            counts.reset()
+            t0 = time.perf_counter()
+            try:
+                _, eval_meters = port_main.main(eval_argv)
+            finally:
+                os2d_logger.removeHandler(handler)
+                handler.close()
+            sync()
+            eval_s = time.perf_counter() - t0
+            eval_counts = counts.read()
+            add(eval_counts)
+            eval_map = float(eval_meters[dataset]["mAP@0.50"])
+            collect = _load_script("experiments/launcher_eval_collect_torch.py")
+            collected = collect.collect(eval_root, "mAP@0.50")
+            table = io.StringIO()
+            with contextlib.redirect_stdout(table):
+                collect.main(["--log-root", eval_root])
+
+            exp1 = _load_script("experiments/launcher_exp1_torch.py")
+            train_job = exp1.build_jobs(
+                launcher.create_args_parser().parse_args(["--no-launch"])).jobs[0]
+            train_argv = _job_argv(train_job, **{
+                "init.model": backbone_path, "output.path": os.path.join(work, "exp1"),
+                "train.optim.max_iter": EXPERIMENT_TRAIN_STEPS})
+            step_meters = []
+            original_one_batch = train_module.train_one_batch
+
+            def recorded_one_batch(*args, **kwargs):
+                meters = original_one_batch(*args, **kwargs)
+                step_meters.append({k: float(meters[k]) for k in ("loss", "grad_norm")})
+                return meters
+
+            train_module.train_one_batch = recorded_one_batch
+            counts.reset()
+            t0 = time.perf_counter()
+            try:
+                _, train_eval_meters = port_main.main(train_argv)
+            finally:
+                train_module.train_one_batch = original_one_batch
+            sync()
+            train_s = time.perf_counter() - t0
+            train_counts = counts.read()
+            add(train_counts)
+            levels = len(port_main.parse_opts(eval_argv)[0].eval.scales_of_image_pyramid)
+            emit({"phase": "experiments",
+                  "eval_job": {"name": eval_job[0], "argv": eval_argv, "mAP@0.50": eval_map,
+                               "collected": collected, "table": table.getvalue().splitlines(),
+                               "seconds": eval_s, "launches": eval_counts, "levels": levels},
+                  "train_job": {"name": train_job[0], "argv": train_argv,
+                                "steps": step_meters,
+                                "final_mAP@0.50": float(train_eval_meters[dataset]["mAP@0.50"]),
+                                "seconds": train_s, "launches": train_counts},
+                  "seconds": time.perf_counter() - t_phase})
+            if not eval_map >= EXPERIMENT_MIN_MAP:
+                raise SystemExit(f"experiments: the eval job's mAP@0.50 {eval_map} < "
+                                 f"{EXPERIMENT_MIN_MAP}")
+            if [(d, v) for d, _, v in collected] != [(dataset, float(f"{eval_map:.4f}"))]:
+                raise SystemExit(f"experiments: the collect twin read {collected} from the "
+                                 f"eval job's log, the job returned {eval_map}")
+            counts.require("experiments", eval_counts, "hat_resample_correlation")
+            if eval_counts["hat_resample_correlation"] < levels:
+                raise SystemExit(f"experiments: {eval_counts['hat_resample_correlation']} hat "
+                                 f"launches for {levels} levels")
+            if len(step_meters) != EXPERIMENT_TRAIN_STEPS or not all(
+                    np.isfinite(list(m.values())).all() for m in step_meters):
+                raise SystemExit(f"experiments: the training job's steps {step_meters}")
+            counts.require("experiments", train_counts, "resample_correlation_backward",
+                           EXPERIMENT_TRAIN_STEPS)
+
+            # ---- 34. parity_runbook: the runbook twin at the published protocol ----
+            t_phase = time.perf_counter()
+            runbook = _load_script("tools/parity_release_torch.py")
+            runs = {}
+            for tol in ("100", "0"):
+                out = io.StringIO()
+                counts.reset()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    try:
+                        runbook.main(["--row", "v2-train", "--checkpoint", ref_path,
+                                      "--data-path", data_path, "--tol", tol,
+                                      "--device", device])
+                        code = 0
+                    except SystemExit as e:
+                        code = e.code
+                sync()
+                launches = counts.read()
+                add(launches)
+                lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+                         if ln.startswith("{")]
+                runs[tol] = {"exit": code, "lines": lines, "seconds": time.perf_counter() - t0,
+                             "launches": launches}
+            emit({"phase": "parity_runbook", "scale": runbook.SCALE, "runs": runs,
+                  "mAP@0.50": runs["100"]["lines"][0]["mAP@0.50"] if runs["100"]["lines"]
+                  else None, "seconds": time.perf_counter() - t_phase})
+            for tol, want_code, verdict in (("100", 0, "PASS"), ("0", 1, "FAIL")):
+                run = runs[tol]
+                if run["exit"] != want_code or not run["lines"] or (
+                        run["lines"][-1].get("parity_gate") != verdict):
+                    raise SystemExit(f"parity_runbook: --tol {tol} gave exit {run['exit']}, "
+                                     f"lines {run['lines']}; expected {verdict}, "
+                                     f"exit {want_code}")
+                counts.require("parity_runbook", run["launches"], "hat_resample_correlation")
+        finally:
+            for name, saved in (("DATA_PATH", saved_data_path), ("OS2D_DEVICE", saved_device)):
+                if saved is None:
+                    os.environ.pop(name, None)
+                else:
+                    os.environ[name] = saved
+    return total
+
+
 def main(argv):
     t_run = time.perf_counter()
     import torch
@@ -3475,7 +3758,8 @@ def main(argv):
                 del m, opt, step_m
             diff = {k: float((v - states[1][k]).abs().max()) for k, v in states[0].items()}
             trainings["cudnn_deterministic" if deterministic else "default"] = {
-                "losses": losses, "weights_bit_equal": all(
+                "losses": losses, "losses_equal": losses[0] == losses[1],
+                "weights_bit_equal": all(
                     torch.equal(v, states[1][k]) for k, v in states[0].items()),
                 "max_weight_diff": max(diff.values()),
                 "tensors_differing": sum(d != 0 for d in diff.values())}
@@ -3483,14 +3767,64 @@ def main(argv):
     finally:
         torch.backends.cudnn.deterministic = saved_deterministic
     del det_batches
+    # the per-layer table: every convolution of one step at the default
+    # recipe's shapes, each distinct one's gradients twice under cuDNN's
+    # default algorithms and under the port's rule (models/resnet.py:
+    # conv2d_backward), compared to the bit and timed
+    from tools import trace_conv_determinism_torch as conv_trace
+
+    conv_rows, conv_summary = conv_trace.trace(
+        "train", conv_trace.capture_train_step(), repeats=2, settings=("default", "port"),
+        kernel_names=False, emit=None)
+    layer_table = [{k: r[k] for k in ("index", "layer", "branch", "w", "stride", "repeats",
+                                      "ms")}
+                   for r in conv_rows if r["same_as_index"] is None]
+    del conv_rows
+    torch.cuda.empty_cache()
+    # s/step in turns on phase 11's batch: under the port's defaults, with
+    # cudnn.deterministic pinned for the whole step, and with F.conv2d's own
+    # gradients in place of models/resnet.py: conv2d (cuDNN's default
+    # algorithms, as before the repair: not repeatable)
+    from os2d_torch.models import resnet as resnet_module
+    from os2d_torch.models import transform_net as transform_net_module
+
+    port_conv2d = resnet_module.conv2d
+    pin_times = {"port_defaults": [], "global_pin": [], "cudnn_defaults": []}
+    try:
+        for _ in range(DETERMINISM_TIMED_ROUNDS):
+            for name in ("port_defaults", "global_pin", "cudnn_defaults", "cudnn_defaults",
+                         "global_pin", "port_defaults"):
+                torch.backends.cudnn.deterministic = name == "global_pin"
+                resnet_module.conv2d = transform_net_module.conv2d = (
+                    F.conv2d if name == "cudnn_defaults" else port_conv2d)
+                step(arrays, c_pad)  # the first step after a switch selects algorithms
+                for _ in range(DETERMINISM_TIMED_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(arrays, c_pad)
+                    torch.cuda.synchronize()
+                    pin_times[name].append(time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = saved_deterministic
+        resnet_module.conv2d = transform_net_module.conv2d = port_conv2d
     emit({"phase": "determinism", "backward_shape": [b, c, h, w],
           "backward_two_calls_bit_equal": bwd_calls,
-          "train_steps": DETERMINISM_STEPS, "trainings": trainings})
+          "train_steps": DETERMINISM_STEPS, "trainings": trainings,
+          "conv_layers": layer_table,
+          "conv_summary": {k: conv_summary[k] for k in ("convolutions", "distinct", "parted",
+                                                        "parted_kinds", "not_repeating",
+                                                        "ms_sum")},
+          "step_s": pin_times,
+          "median_step_s": {k: float(np.median(v)) for k, v in pin_times.items()}})
     if not all(bwd_calls.values()):
         raise SystemExit(f"determinism: two backward calls differ: {bwd_calls}")
-    if not trainings["cudnn_deterministic"]["weights_bit_equal"]:
-        raise SystemExit(f"determinism: two trainings from one seed differ under "
-                         f"cudnn.deterministic: {trainings}")
+    for name, run in trainings.items():
+        if not (run["weights_bit_equal"] and run["losses_equal"]):
+            raise SystemExit(f"determinism: two trainings from one seed differ ({name}): "
+                             f"{run}")
+    if any(conv_summary["not_repeating"]["port"].values()):
+        raise SystemExit(f"determinism: convolution gradients that do not repeat under the "
+                         f"port's rule: {conv_summary['not_repeating']['port']}")
     del g, g_sum, corr, px, py, mask_t
 
     # ---- 12. NMS above dense_limit (the block-sequential path) ----
@@ -4010,6 +4344,10 @@ def main(argv):
                               first_objective=first_objective, train_model=train_model,
                               train_opt=train_opt, profile="--profile" in argv))
 
+    # ---- 33./34. the experiment launchers' twins and the release runbook's ----
+    entry_launches = entry_surfaces(
+        types.SimpleNamespace(reset=reset_counts, read=read_counts, require=require_launches))
+
     if "--profile" in argv:
         profile_run("profile", lambda: ev.detect_images(batches[0], class_head, sizes, inv, norm),
                     main_median)
@@ -4043,7 +4381,8 @@ def main(argv):
                      + serve_counts["hat_resample_correlation"]
                      + dist_counts["hat_resample_correlation"]
                      + host_launches["hat_resample_correlation"]
-                     + last_launches["hat_resample_correlation"]),
+                     + last_launches["hat_resample_correlation"]
+                     + entry_launches["hat_resample_correlation"]),
         "max_abs_err": max(errs["hat_resample_correlation"].values()),
         "ms": hat_ms,
         "plain_ms": hat_plain_ms,
@@ -4069,7 +4408,8 @@ def main(argv):
         "replaces": "os2d_tpu/ops/sampling.py:147",
         "launches": (loop_counts["resample_correlation_backward"]
                      + dist_counts["resample_correlation_backward"]
-                     + last_launches["resample_correlation_backward"]),
+                     + last_launches["resample_correlation_backward"]
+                     + entry_launches["resample_correlation_backward"]),
         "max_abs_err": max(max(e.values())
                            for e in errs["resample_correlation_backward"].values()),
         "ms": bwd_ms,

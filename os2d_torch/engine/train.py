@@ -160,12 +160,11 @@ class TrainStep:
         reading them, and deciding whether the update is finite, is the
         step's one wait for the device.
 
-        The resample's backward sums in a fixed order, but cuDNN's default
-        algorithms sum the convolutions' gradients in none: two steps from
-        one state then differ in their last bits. Under
-        `torch.backends.cudnn.deterministic = True` they agree to the bit,
-        at about a quarter more time a step at the default recipe on an
-        H100 (PERF.md)."""
+        Two steps from one state on one batch agree to the bit under the
+        port's defaults: the resample's backward sums in a fixed order, and
+        every convolution's gradients repeat (models/resnet.py:
+        conv2d_backward), at about 2% more time a step than cuDNN's default
+        algorithms at the default recipe on an H100 (PERF.md)."""
         model, tcfg, mesh = self.model, self.train_cfg, self.mesh
         mean, std = self.mean, self.std
         for p in model.parameters():
@@ -314,12 +313,19 @@ def dump_nan_reproducer(dump_dir, batch_arrays, model, optimizer, num_classes, e
     return path
 
 
-def load_nan_reproducer(path, device="cpu"):
-    """A dump of `dump_nan_reproducer` with the batch on `device`. Replay:
+def load_nan_reproducer(path, device="cuda"):
+    """A dump of `dump_nan_reproducer` with the batch on `device`, the card
+    by default (as JAX's loader puts it on the default device,
+    os2d_tpu/engine/train.py:480-495); it raises without one rather than
+    load onto the CPU, which device="cpu" asks for. Replay:
         d = load_nan_reproducer(path, model.device)
         model.load_state_dict(d["net"]); optimizer.load_state_dict(d["optimizer"])
         train_step(d["batch_arrays"], d["num_classes"])
     (the reference's reload snippet, os2d/engine/train.py:131-139)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_nan_reproducer targets CUDA by default and no CUDA device "
+                           "is available; pass device='cpu' to load the batch on the CPU")
     payload = torch.load(path, map_location="cpu", weights_only=True)
     shapes = payload.get("wire_shapes", {})
     payload["batch_arrays"] = {

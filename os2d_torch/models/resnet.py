@@ -23,6 +23,12 @@ and a bias (state_dict keys `<bn>.weight`, `<bn>.bias`, no running stats),
 fp32 output in every compute dtype. It depends on the activations and does
 not fold.
 
+Every convolution of the port goes through `conv2d`, whose fp32 gradients
+repeat to the bit on the card (`conv2d_backward`: the 1x1 weight gradients
+as per-image cuBLAS GEMMs in a fixed sum, cuDNN's deterministic algorithms
+for the gradients whose default algorithms add with atomics), so that
+training repeats at a seed.
+
 `ResNetClassifier` is the full torchvision ResNet50/101 (layer4 at stride 2,
 global average pooling, fc) that the ImageNet pretrainer trains
 (os2d_tpu/models/resnet.py:167-266), with BatchNorm in train mode as JAX
@@ -33,6 +39,7 @@ its trunk loads into `ResNetC4` as it is.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 
@@ -58,6 +65,158 @@ BN_EPS = 1e-5
 GROUPNORM_NUMGROUPS = 32
 
 
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms (no heuristic search) for the block;
+    the two flags are process-global and autograd runs a CUDA backward on a
+    thread of its own, so they are restored on every exit."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+# the shortest run of an image's rows in one product of `wgrad_1x1_gemm`
+WGRAD_MIN_ROWS = 2048
+
+
+def _tree_sum(t):
+    """t summed over its first dim in a fixed pairwise tree: adjacent pairs
+    added level by level, an odd last one carried up a level."""
+    while t.shape[0] > 1:
+        if t.shape[0] % 2:
+            t = torch.cat([t[:-1].view(-1, 2, *t.shape[1:]).sum(1), t[-1:]])
+        else:
+            t = t.view(-1, 2, *t.shape[1:]).sum(1)
+    return t[0]
+
+
+def wgrad_1x1_gemm(grad, x, stride: int = 1):
+    """The weight gradient of a 1x1 convolution without padding, in x's
+    dtype (a stride takes every stride-th row and column of x), summed so
+    that over a batch of 2^k images it is the sum of its two halves' sums,
+    as a data-parallel step over two ranks adds them (parallel/mesh.py):
+    each image's rows are cut into the most runs, a power of two, of at
+    least WGRAD_MIN_ROWS rows, one batched cuBLAS GEMM takes every run's
+    [rows, Cout]^T x [rows, Cin] product, and `_tree_sum` adds them in
+    image order."""
+    xs = x[:, :, ::stride, ::stride] if stride > 1 else x
+    n, cout, cin = grad.shape[0], grad.shape[1], x.shape[1]
+    rows = grad.shape[2] * grad.shape[3]
+    runs = 1
+    while rows % (2 * runs) == 0 and rows // (2 * runs) >= WGRAD_MIN_ROWS:
+        runs *= 2
+    g3 = grad.permute(0, 2, 3, 1).reshape(n * runs, rows // runs, cout)
+    x3 = xs.permute(0, 2, 3, 1).reshape(n * runs, rows // runs, cin)
+    return _tree_sum(torch.bmm(g3.transpose(1, 2), x3)).view(cout, cin, 1, 1)
+
+
+def dgrad_by_phases(grad, weight, stride: int, padding: int, x):
+    """The input gradient of conv2d(x, weight, stride=stride,
+    padding=padding) as stride**2 forward convolutions of `grad`, one for
+    each phase (i mod stride, j mod stride) of x's rows and columns, each
+    with the taps of `weight` that reach that phase (flipped, channels
+    swapped); returned in x's shape, dtype and memory format."""
+    s, p = stride, padding
+    kh, kw = weight.shape[2:]
+    h, w = x.shape[2:]
+    swapped = weight.transpose(0, 1)
+    dx = torch.empty_like(x)
+    for a in range(min(s, h)):
+        for b in range(min(s, w)):
+            rows, cols = len(range(a, h, s)), len(range(b, w, s))
+            ka, kb = (a + p) % s, (b + p) % s
+            if ka >= kh or kb >= kw:
+                dx[:, :, a::s, b::s] = 0
+                continue
+            taps = swapped[:, :, ka::s, kb::s].flip(2, 3)
+            ta, tb = taps.shape[2:]
+            # phase row m takes grad rows m + (a + p - ka) / s - t, t < ta
+            top, left = ta - 1 - (a + p - ka) // s, tb - 1 - (b + p - kb) // s
+            bottom = rows + ta - 1 - grad.shape[2] - top
+            right = cols + tb - 1 - grad.shape[3] - left
+            dx[:, :, a::s, b::s] = F.conv2d(F.pad(grad, (left, right, top, bottom)), taps)
+    return dx
+
+
+def conv2d_backward(grad, x, weight, has_bias: bool, stride: int, padding: int, output_mask):
+    """(dx, dweight, dbias) of conv2d(x, weight, bias, stride, padding) for
+    the cotangent `grad`, each None where `output_mask` does not ask for it.
+
+    On the card the gradients repeat to the bit from run to run. cuDNN's
+    default fp32 algorithms do not: its ALGO_0 kernels add partial sums with
+    atomics (tools/trace_conv_determinism_torch.py, PERF.md). So, by the
+    convolution's shape: a weight gradient of a 1x1 convolution is
+    `wgrad_1x1_gemm`'s (cuBLAS, in a fixed sum); the input gradient of a
+    strided kernel larger than 1x1 is `dgrad_by_phases`' (forward
+    convolutions, which cuDNN runs without atomics; its deterministic
+    input-gradient algorithm there is an FFT several times slower); any
+    other weight gradient, and the input gradient of any other kernel
+    larger than 1x1 (whose windows overlap), run cuDNN's deterministic
+    algorithms; the input gradient of a 1x1 convolution, where each input
+    element takes one window's terms, stays on cuDNN's default algorithm.
+    On the CPU every gradient is ATen's one `convolution_backward`, as
+    autograd takes it."""
+    bias_sizes = [weight.shape[0]] if has_bias else None
+
+    def aten(mask):
+        return torch.ops.aten.convolution_backward(
+            grad, x, weight, bias_sizes, [stride, stride], [padding, padding], [1, 1], False,
+            [0, 0], 1, mask)
+
+    if grad.device.type != "cuda":
+        return aten(list(output_mask))
+    return _repeatable_backward(aten, grad, x, weight, stride, padding, output_mask)
+
+
+def _repeatable_backward(aten, grad, x, weight, stride, padding, output_mask):
+    """conv2d_backward's rule on the card; `aten(mask)` is ATen's
+    convolution_backward of the same convolution."""
+    need_dx, need_dw, need_db = output_mask
+    if tuple(weight.shape[2:]) == (1, 1) and padding == 0:
+        dx = aten([True, False, False])[0] if need_dx else None
+        dw = wgrad_1x1_gemm(grad, x, stride) if need_dw else None
+        return dx, dw, grad.sum((0, 2, 3)) if need_db else None
+    dx = None
+    if need_dx and stride > 1:
+        dx, need_dx = dgrad_by_phases(grad, weight, stride, padding, x), False
+    with _cudnn_deterministic():
+        out = aten([need_dx, need_dw, need_db])
+    return dx if dx is not None else out[0], out[1], out[2]
+
+
+class _RepeatableConv2d(torch.autograd.Function):
+    """F.conv2d whose backward is `conv2d_backward`: the forward is the
+    convolution as it is, to the bit."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (bias is not None, stride, padding)
+        return F.conv2d(x, weight, bias, stride, padding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = conv2d_backward(grad, x, weight, *ctx.conv, ctx.needs_input_grad[:3])
+        return dx, dw, db, None, None
+
+
+def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 0):
+    """F.conv2d(x, weight, bias, stride, padding); every convolution of the
+    port goes through here. Where autograd records an fp32 convolution, its
+    gradients are `conv2d_backward`'s, which repeat to the bit on the card.
+    A bf16 convolution keeps F.conv2d's own gradients: cuDNN's bf16 kernels
+    repeat to the bit as they are (the trace of PERF.md, the pretrainer's
+    and the bf16 TrainStep's convolutions)."""
+    if x.dtype == torch.float32 and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return _RepeatableConv2d.apply(x, weight, bias, stride, padding)
+    return F.conv2d(x, weight, bias, stride, padding)
+
+
 class Conv2d(nn.Module):
     """A convolution that owns an OIHW weight (and optionally a bias) and is
     initialized by its parent, never from the global random state."""
@@ -72,8 +231,7 @@ class Conv2d(nn.Module):
 
     def forward(self, x, dtype=torch.float32):
         """The convolution on x and the weight cast to `dtype`, output in it."""
-        return F.conv2d(x.to(dtype), self.weight.to(dtype), self.bias, self.stride,
-                        self.padding)
+        return conv2d(x.to(dtype), self.weight.to(dtype), self.bias, self.stride, self.padding)
 
 
 class FrozenBatchNorm2d(nn.Module):

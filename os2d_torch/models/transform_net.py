@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.geometry import l2_normalize_channels
-from .resnet import Conv2d, FrozenBatchNorm2d
+from .resnet import Conv2d, FrozenBatchNorm2d, conv2d
 
 KERNEL_SIZES = (7, 5)
 CHANNELS = (128, 64)
@@ -38,8 +38,8 @@ def _conv_bias(conv: Conv2d, x, dtype, weight=None):
     added to its fp32-cast output."""
     w = conv.weight if weight is None else weight
     if dtype == torch.float32:
-        return F.conv2d(x, w, conv.bias, padding=conv.padding)
-    out = F.conv2d(x.to(dtype), w.to(dtype), padding=conv.padding)
+        return conv2d(x, w, conv.bias, padding=conv.padding)
+    out = conv2d(x.to(dtype), w.to(dtype), padding=conv.padding)
     return out.float() + conv.bias[:, None, None]
 
 

@@ -73,6 +73,21 @@ def main_command(config_file=None, overrides="", num_gpus=1):
     return f"python -m os2d_torch.main{args}"
 
 
+def resolve_checkpoint(model_path, model_checkpoint):
+    """The checkpoint an eval job loads: `model_path` itself if it is a file,
+    else `model_checkpoint` in that folder, or the port's `.pth` of the same
+    name where only that one exists (the checkpoint cascade,
+    models/checkpoint.py, reads the JAX trainer's `.pkl` and the port's
+    `.pth` alike)."""
+    if os.path.isfile(model_path):
+        return model_path
+    path = os.path.join(model_path, model_checkpoint)
+    port_path = os.path.splitext(path)[0] + ".pth"
+    if not os.path.isfile(path) and os.path.isfile(port_path):
+        return port_path
+    return path
+
+
 def _echo_and_execute(out_f, command):
     out_f.write(f'echo "{command}"\n{command}\necho\n')
 

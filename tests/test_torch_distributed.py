@@ -214,7 +214,7 @@ def test_nan_step_dumps_the_global_batch_on_every_rank(runs):
     for r in ranks:
         assert not math.isfinite(r["train"]["nan_grad_norm"])
         assert r["train"]["nan_digest"] == r["train"]["digest"]  # the update was skipped
-    payload = load_nan_reproducer(runs["dirs"][2] / "nan" / dumps[0])
+    payload = load_nan_reproducer(runs["dirs"][2] / "nan" / dumps[0], device="cpu")
     images = payload["batch_arrays"]["images"]
     assert images.shape[0] == 2 and torch.isnan(images[-1]).any()
     replay = Os2dModel(worker.TRAIN_CONFIG, device="cpu")

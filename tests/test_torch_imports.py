@@ -1,8 +1,10 @@
 """Import and fallback hygiene of the PyTorch port.
 
 - No file of os2d_torch, nor chip_smoke.py, nor demo_torch.py, nor a tool
-  of the port (tools/*torch*.py, the mAP gate's, the class-scaling bench's
-  and the dataset scales' twins among them) imports jax, jaxlib, optax,
+  of the port (tools/*torch*.py, the mAP gate's, the class-scaling bench's,
+  the dataset scales' and the release runbook's twins among them), nor a
+  twin of an experiment launcher (experiments/*_torch.py) or of the
+  baselines interface (baselines/*_torch.py) imports jax, jaxlib, optax,
   orbax or os2d_tpu; the HTTP app imports nothing outside the port and the
   standard library but fastapi. Every one of them but chip_smoke.py and the
   app imports here; the pretrainer, the yuv420 wire and the checkpoint
@@ -22,7 +24,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "os2d_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "demo_torch.py"]
-              + sorted((ROOT / "tools").glob("*torch*.py")))
+              + sorted((ROOT / "tools").glob("*torch*.py"))
+              + sorted((ROOT / "experiments").glob("*_torch.py"))
+              + sorted((ROOT / "baselines").glob("*_torch.py")))
 FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "os2d_tpu")
 # builds its model when imported (uvicorn imports it for `app`) and needs
 # fastapi: tests/test_torch_app.py imports it with a stub fastapi

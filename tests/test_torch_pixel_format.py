@@ -295,7 +295,7 @@ def test_nan_reproducer_keeps_the_wire(tmp_path):
     net = torch.nn.Linear(2, 2)
     path = dump_nan_reproducer(str(tmp_path), arrays, net, torch.optim.SGD(net.parameters(),
                                                                            lr=0.1), 4)
-    loaded = load_nan_reproducer(path)["batch_arrays"]
+    loaded = load_nan_reproducer(path, device="cpu")["batch_arrays"]
     assert isinstance(loaded["images"], tpix.PackedYuv420)
     assert loaded["images"].shape == img.shape
     assert torch.equal(loaded["images"].data, arrays["images"].data)

@@ -179,7 +179,7 @@ def test_nonfinite_gradient_skips_the_update(setup, tmp_path):
         assert torch.equal(optimizer.state[p]["momentum_buffer"], momentum[id(p)])
     dumps = list(tmp_path.glob("error_nan_appeared-*.pth"))
     assert len(dumps) == 1
-    payload = load_nan_reproducer(dumps[0])
+    payload = load_nan_reproducer(dumps[0], device="cpu")
     assert payload["num_classes"] == 4
     replay = _port_model(params)
     replay.load_state_dict(payload["net"])
@@ -188,3 +188,11 @@ def test_nonfinite_gradient_skips_the_update(setup, tmp_path):
     metrics = TrainStep(replay, ObjectiveConfig(), replay_opt, cfg.train)(
         payload["batch_arrays"], payload["num_classes"])
     assert not math.isfinite(metrics["grad_norm"])
+
+
+def test_nan_reproducer_loads_onto_the_card_by_default(monkeypatch):
+    """JAX's loader puts the dump on the default device; the port's takes
+    the card unless told otherwise, and raises without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_nan_reproducer("error_nan_appeared-missing.pth")
