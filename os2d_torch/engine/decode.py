@@ -25,6 +25,7 @@ from ..structures.boxes import (
     strided_anchor_grid,
 )
 from ..structures.feature_map import FeatureMapSize, feature_map_size_for_image
+from ..utils.profiling import host_constant
 
 
 def default_boxes_for_image_size(img_size: FeatureMapSize, device=None):
@@ -59,7 +60,7 @@ def decode_single_level(loc_scores, cls_scores, default_boxes, img_size_wh,
     boxes = clip_boxes_to_image(boxes, float(img_size_wh[0]), float(img_size_wh[1]))
     valid = (cls_scores > score_threshold) & ~mask_empty_boxes(boxes)
     sx, sy = inverse_scale_xy
-    scale = torch.tensor([sx, sy, sx, sy], dtype=boxes.dtype, device=boxes.device)
+    scale = host_constant([sx, sy, sx, sy], dtype=boxes.dtype, device=boxes.device)
     return boxes * scale, cls_scores, valid
 
 
@@ -104,7 +105,8 @@ def decode_pyramid(
         if corners_pyramid is not None:
             sx, sy = inverse_scales[lvl]
             corners = corners_pyramid[lvl].transpose(-1, -2)  # [..., G, A, 8]
-            all_corners.append(corners * corners.new_tensor([sx, sy] * 4))
+            all_corners.append(corners * host_constant([sx, sy] * 4, dtype=corners.dtype,
+                                                       device=corners.device))
 
     boxes = torch.cat(all_boxes, dim=-2)  # [..., G, A_tot, 4]
     scores = torch.cat(all_scores, dim=-1)

@@ -72,6 +72,7 @@ from ..ops.pixel_format import (
 from ..ops.sampling import resize_bilinear_antialias
 from ..parallel.mesh import all_gather_cat, all_gather_chunked, local_rows, primary_host
 from ..structures.feature_map import FeatureMapSize, feature_map_size_for_image
+from ..utils.profiling import annotate, host_constant
 from ..utils.upload import uploader_for
 from .decode import decode_pyramid, default_boxes_for_image_size
 from .objective import compute_objective
@@ -104,8 +105,13 @@ def prescreen_margin(resample_precision: str, compute_dtype: str = "float32") ->
 
 def unpack_detections(packed) -> Dict[str, np.ndarray]:
     """Unpack a packed [..., G, K, 6] array (x1, y1, x2, y2, score, valid)
-    into {boxes, scores, valid} numpy arrays."""
-    arr = packed.cpu().numpy() if isinstance(packed, torch.Tensor) else np.asarray(packed)
+    into {boxes, scores, valid} numpy arrays. Reading a device tensor back
+    is the request's last host wait (span `os2d.wait.unpack`)."""
+    if isinstance(packed, torch.Tensor):
+        with annotate("os2d.wait.unpack"):
+            arr = packed.cpu().numpy()
+    else:
+        arr = np.asarray(packed)
     return {
         "boxes": arr[..., :4],
         "scores": arr[..., 4],
@@ -144,6 +150,15 @@ def augment_class_images(class_images: List, mode: str):
     return [np.ascontiguousarray(v) for v in views], num_views
 
 
+def _on_device(x, device):
+    """`x` as a tensor on `device`. From host memory that is a pageable copy,
+    which on a card waits for the stream to drain (span `os2d.wait.upload`)."""
+    if isinstance(x, torch.Tensor) and x.device.type == torch.device(device).type:
+        return torch.as_tensor(x, device=device)
+    with annotate("os2d.wait.upload"):
+        return torch.as_tensor(x, device=device)
+
+
 def _pad_classes(x, c_pad: int):
     if x.shape[0] == c_pad:
         return x
@@ -171,25 +186,27 @@ def _decode_and_pack(loc_p, cls_p, sizes, scales, num_views, cfg):
 
     loc_p/cls_p rows must be a multiple of num_views (views of one class are
     contiguous); the v::num_views split decodes each view as an extra
-    pyramid level, for joint per-class NMS over views."""
-    if num_views > 1:
-        if loc_p[0].shape[1] % num_views:
-            raise ValueError(f"{loc_p[0].shape[1]} class rows do not split into "
-                             f"{num_views} views")
-        loc_p = [lp[:, v::num_views] for lp in loc_p for v in range(num_views)]
-        cls_p = [cp[:, v::num_views] for cp in cls_p for v in range(num_views)]
-        sizes = [s for s in sizes for _ in range(num_views)]
-        scales = [s for s in scales for _ in range(num_views)]
-    out = decode_pyramid(
-        loc_p, cls_p, sizes, scales,
-        nms_iou_threshold=float(cfg.eval.nms_iou_threshold),
-        score_threshold=float(cfg.eval.nms_score_threshold),
-        pre_top_k=int(cfg.tpu.eval_pre_top_k),
-        top_k=int(cfg.tpu.eval_top_k),
-        nms_across_classes=bool(cfg.eval.nms_across_classes),
-    )
-    return torch.cat(
-        [out["boxes"], out["scores"][..., None], out["valid"][..., None].float()], dim=-1)
+    pyramid level, for joint per-class NMS over views. Runs in span
+    `os2d.eval.decode`."""
+    with annotate("os2d.eval.decode"):
+        if num_views > 1:
+            if loc_p[0].shape[1] % num_views:
+                raise ValueError(f"{loc_p[0].shape[1]} class rows do not split into "
+                                 f"{num_views} views")
+            loc_p = [lp[:, v::num_views] for lp in loc_p for v in range(num_views)]
+            cls_p = [cp[:, v::num_views] for cp in cls_p for v in range(num_views)]
+            sizes = [s for s in sizes for _ in range(num_views)]
+            scales = [s for s in scales for _ in range(num_views)]
+        out = decode_pyramid(
+            loc_p, cls_p, sizes, scales,
+            nms_iou_threshold=float(cfg.eval.nms_iou_threshold),
+            score_threshold=float(cfg.eval.nms_score_threshold),
+            pre_top_k=int(cfg.tpu.eval_pre_top_k),
+            top_k=int(cfg.tpu.eval_top_k),
+            nms_across_classes=bool(cfg.eval.nms_across_classes),
+        )
+        return torch.cat(
+            [out["boxes"], out["scores"][..., None], out["valid"][..., None].float()], dim=-1)
 
 
 def padded_gt_for_image(dataloader, image_id, class_ids, num_views: int, g_pad: int):
@@ -227,10 +244,10 @@ def eval_losses(objective_cfg, cfg, loc_p, cls_p, sizes, scales, gt):
     obj = cfg.train.objective
     num_labels = loc_p[0].shape[1]
     device = loc_p[0].device
-    gt = [torch.as_tensor(gt[k], device=device) for k in ("boxes", "labels", "difficult", "valid")]
+    gt = [_on_device(gt[k], device) for k in ("boxes", "labels", "difficult", "valid")]
     loc_t, cls_t, cls_r = [], [], []
     for lp, sz, (sx, sy) in zip(loc_p, sizes, scales):
-        d_boxes = default_boxes_for_image_size(sz, device=device) * torch.tensor(
+        d_boxes = default_boxes_for_image_size(sz, device=device) * host_constant(
             [sx, sy, sx, sy], dtype=torch.float32, device=device)
         lt, ct = encode_targets(*gt, d_boxes, num_labels, float(obj.positive_iou_threshold),
                                 float(obj.negative_iou_threshold))
@@ -306,21 +323,21 @@ class Evaluator:
         antialiased pyramid on the model's device, one [B, h_l, w_l, 3]
         tensor per level (JAX's engine/pyramid.py: device_pyramid, batched).
         A wire decodes here, straight to float (os2d_tpu/engine/
-        evaluate.py:576-577)."""
+        evaluate.py:576-577). Runs in span `os2d.eval.pyramid`."""
         device = self.model.device
-        if isinstance(images_u8, PackedYuv420):
-            images = PackedYuv420(torch.as_tensor(images_u8.data, device=device),
-                                  images_u8.shape)
-        else:
-            images = torch.as_tensor(images_u8, device=device)
-            if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
-                raise ValueError(f"images must be uint8 [B, H, W, 3], got "
-                                 f"{images.dtype} {tuple(images.shape)}")
-        mean = torch.tensor(img_normalization["mean"], dtype=torch.float32, device=device)
-        std = torch.tensor(img_normalization["std"], dtype=torch.float32, device=device)
-        img = (decode_to_float_rgb(images) / 255.0 - mean) / std
-        return [img if (sz.h, sz.w) == tuple(img.shape[1:3])
-                else resize_bilinear_antialias(img, sz.h, sz.w) for sz in level_sizes]
+        with annotate("os2d.eval.pyramid"):
+            if isinstance(images_u8, PackedYuv420):
+                images = PackedYuv420(_on_device(images_u8.data, device), images_u8.shape)
+            else:
+                images = _on_device(images_u8, device)
+                if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
+                    raise ValueError(f"images must be uint8 [B, H, W, 3], got "
+                                     f"{images.dtype} {tuple(images.shape)}")
+            mean = host_constant(img_normalization["mean"], dtype=torch.float32, device=device)
+            std = host_constant(img_normalization["std"], dtype=torch.float32, device=device)
+            img = (decode_to_float_rgb(images) / 255.0 - mean) / std
+            return [img if (sz.h, sz.w) == tuple(img.shape[1:3])
+                    else resize_bilinear_antialias(img, sz.h, sz.w) for sz in level_sizes]
 
     def _pyramid_features(self, images_u8, level_sizes, img_normalization):
         """uint8 [B, H, W, 3] or a wire -> backbone feature maps, one per level."""
@@ -356,31 +373,33 @@ class Evaluator:
         and the padding trimmed. A QuantizedClassHead's chunks are
         dequantized as the head runs (zero rows pad to zero features). With
         shard_classes each rank of the mesh runs the head on its slice of
-        every chunk, and each output is gathered whole."""
+        every chunk, and each output is gathered whole. Runs in span
+        `os2d.eval.scores` (each head call in its own `os2d.head`)."""
         mesh = self.mesh if shard_classes else None
         c_total = class_head.pool_mask.shape[0]
         if level_chunks is None:
             level_chunks = [self._class_chunk(mesh is not None)] * len(fms)
-        banks = {}
-        scores = {k: [] for k in keys}
-        for fm, chunk in zip(fms, level_chunks):
-            n_chunks = -(-c_total // chunk)
-            if chunk not in banks:
-                banks[chunk] = [_pad_classes(x, n_chunks * chunk) for x in class_head]
-            bank = banks[chunk]
-            own = slice(0, chunk) if mesh is None else local_rows(mesh, chunk)
-            parts = {k: [] for k in keys}
-            for start in range(0, n_chunks * chunk, chunk):
-                rows = slice(start + own.start, start + own.stop)
-                out = self.model.apply_head(fm, type(class_head)(*(x[rows] for x in bank)))
+        with annotate("os2d.eval.scores"):
+            banks = {}
+            scores = {k: [] for k in keys}
+            for fm, chunk in zip(fms, level_chunks):
+                n_chunks = -(-c_total // chunk)
+                if chunk not in banks:
+                    banks[chunk] = [_pad_classes(x, n_chunks * chunk) for x in class_head]
+                bank = banks[chunk]
+                own = slice(0, chunk) if mesh is None else local_rows(mesh, chunk)
+                parts = {k: [] for k in keys}
+                for start in range(0, n_chunks * chunk, chunk):
+                    rows = slice(start + own.start, start + own.stop)
+                    out = self.model.apply_head(fm, type(class_head)(*(x[rows] for x in bank)))
+                    for k in keys:
+                        parts[k].append(out[k])
                 for k in keys:
-                    parts[k].append(out[k])
-            for k in keys:
-                level = torch.cat(parts[k], dim=1)
-                if mesh is not None:
-                    level = all_gather_chunked(mesh, level, n_chunks, dim=1)
-                scores[k].append(level[:, :c_total])
-        return scores
+                    level = torch.cat(parts[k], dim=1)
+                    if mesh is not None:
+                        level = all_gather_chunked(mesh, level, n_chunks, dim=1)
+                    scores[k].append(level[:, :c_total])
+            return scores
 
     @torch.no_grad()
     def score_pyramid(self, pyramid_images, class_head: ClassHead, want_corners: bool = False):
@@ -393,7 +412,7 @@ class Evaluator:
         model's device: loc [B, C, 4, A_l], cls [B, C, A_l] and, with
         want_corners, corners [B, C, 8, A_l]. Over a mesh the classes shard."""
         keys = ("loc", "cls", "corners") if want_corners else ("loc", "cls")
-        fms = [self.model.extract_features(torch.as_tensor(level, device=self.model.device))
+        fms = [self.model.extract_features(_on_device(level, self.model.device))
                for level in pyramid_images]
         scores = self._score_levels(fms, self._bank(class_head), keys,
                                     shard_classes=self.mesh is not None)
@@ -427,7 +446,7 @@ class Evaluator:
             rows = local_rows(self.mesh, images_u8.shape[0])
             if isinstance(images_u8, PackedYuv420):
                 images_u8 = decode_wire_to_u8(
-                    PackedYuv420(torch.as_tensor(images_u8.data, device=self.model.device),
+                    PackedYuv420(_on_device(images_u8.data, self.model.device),
                                  images_u8.shape))
             images_u8 = images_u8[rows]
             if gt is not None:
@@ -530,7 +549,8 @@ class Evaluator:
         # difference between the phases
         margin = prescreen_margin(self.model.config.resample_precision,
                                   self.model.config.compute_dtype)
-        ceil_groups = ceil.cpu().numpy().reshape(n_groups, num_views).max(1)
+        with annotate("os2d.wait.prescreen"):
+            ceil_groups = ceil.cpu().numpy().reshape(n_groups, num_views).max(1)
         sel = np.nonzero(ceil_groups > threshold - margin)[0]
         self.prescreen_pruned += n_groups - int(sel.size)
         full = torch.zeros((n_img, n_groups, top_k, 6), dtype=torch.float32, device=device)
@@ -546,7 +566,7 @@ class Evaluator:
         c_sel_pad = n_chunks2 * chunk
         row_idx = (sel[:, None] * num_views + np.arange(num_views)).reshape(-1)
         row_idx = np.concatenate([row_idx, np.zeros((c_sel_pad - n_sel_rows,), np.int64)])
-        rows = torch.as_tensor(row_idx, device=device)
+        rows = _on_device(row_idx, device)
         scores = self._score_levels(fms, ClassHead(feats_bank[rows], pool_mask[rows]),
                                     shard_classes=mesh is not None)
         loc_p, cls_p = scores["loc"], scores["cls"]
@@ -561,7 +581,7 @@ class Evaluator:
                  for cp in cls_p]
         packed = _decode_and_pack(loc_p, cls_p, list(level_sizes),
                                   [tuple(s) for s in inverse_scales], num_views, cfg)
-        full[:, torch.as_tensor(sel, device=device)] = packed[:, :sel.size]
+        full[:, _on_device(sel, device)] = packed[:, :sel.size]
         return full
 
 

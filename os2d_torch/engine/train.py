@@ -69,6 +69,7 @@ from ..utils.logger import (
     print_meters,
     time_since,
 )
+from ..utils.profiling import annotate
 from ..utils.upload import uploader_for
 
 
@@ -158,7 +159,12 @@ class TrainStep:
         `prepare_batch_arrays`, num_classes its padded class count). Returns
         the loss terms and the gradient norm (before clipping) as floats:
         reading them, and deciding whether the update is finite, is the
-        step's one wait for the device.
+        step's one read-back (span `os2d.wait.step_metrics`); its other
+        host waits are the copies of a few host constants in the class head
+        and the head (`os2d.wait.constant`). Its phases run in spans
+        `os2d.train.zero_grad`, `.forward`, `.targets`, `.objective`,
+        `.backward`, `.clip`, `.optimizer` and `.release` (the graph and
+        the activations freed).
 
         Two steps from one state on one batch agree to the bit under the
         port's defaults: the resample's backward sums in a fixed order, and
@@ -167,58 +173,70 @@ class TrainStep:
         algorithms at the default recipe on an H100 (PERF.md)."""
         model, tcfg, mesh = self.model, self.train_cfg, self.mesh
         mean, std = self.mean, self.std
-        for p in model.parameters():
-            p.grad = None
+        with annotate("os2d.train.zero_grad"):
+            for p in model.parameters():
+                p.grad = None
 
-        images = batch_arrays["images"]
-        if mesh is not None:
-            # rows of a wire cannot be sliced: it decodes to uint8 up front,
-            # as JAX's mesh paths do (os2d_tpu/engine/train.py:677-688)
-            if isinstance(images, PackedYuv420):
-                images = decode_wire_to_u8(images)
-            images = images[local_rows(mesh, images.shape[0])]
-        fm = model.backbone(_normalize_u8(images, mean, std))
-        class_fm = model.label_branch(_normalize_u8(batch_arrays["class_images"], mean, std))
-        if not tcfg.model.train_features:
-            fm, class_fm = fm.detach(), class_fm.detach()
-        out = model.apply_head(fm, build_class_head(class_fm))
-        if mesh is not None:
-            out = {k: gather_rows(mesh, out[k]) for k in ("loc", "cls", "cls_detached")}
+        with annotate("os2d.train.forward"):
+            images = batch_arrays["images"]
+            if mesh is not None:
+                # rows of a wire cannot be sliced: it decodes to uint8 up
+                # front, as JAX's mesh paths do (os2d_tpu/engine/train.py:677-688)
+                if isinstance(images, PackedYuv420):
+                    images = decode_wire_to_u8(images)
+                images = images[local_rows(mesh, images.shape[0])]
+            fm = model.backbone(_normalize_u8(images, mean, std))
+            class_fm = model.label_branch(_normalize_u8(batch_arrays["class_images"], mean, std))
+            if not tcfg.model.train_features:
+                fm, class_fm = fm.detach(), class_fm.detach()
+            out = model.apply_head(fm, build_class_head(class_fm))
+            if mesh is not None:
+                out = {k: gather_rows(mesh, out[k]) for k in ("loc", "cls", "cls_detached")}
 
-        obj = tcfg.objective
-        gt = (batch_arrays["gt_boxes"], batch_arrays["gt_labels"], batch_arrays["gt_difficult"],
-              batch_arrays["gt_valid"])
-        default_boxes = batch_arrays["default_boxes"]
-        loc_t, cls_t = encode_targets(*gt, default_boxes, num_classes,
-                                      float(obj.positive_iou_threshold),
-                                      float(obj.negative_iou_threshold))
-        cls_remapped, _, _ = remap_targets(
-            out["loc"].detach(), *gt, default_boxes,
-            float(obj.remap_classification_targets_iou_pos),
-            float(obj.remap_classification_targets_iou_neg))
-        # padded class rows are ignored everywhere
-        cvalid = batch_arrays["class_valid"][None, :, None]
-        cls_t = torch.where(cvalid, cls_t, -1)
-        cls_remapped = torch.where(cvalid, cls_remapped, -1)
-        losses = compute_objective(
-            self.objective_cfg, out["loc"], loc_t, out["cls"], cls_t,
-            cls_targets_remapped=cls_remapped,
-            cls_preds_for_neg=None if tcfg.model.train_transform_on_negs else out["cls_detached"])
-        losses["loss"].backward()
+        with annotate("os2d.train.targets"):
+            obj = tcfg.objective
+            gt = (batch_arrays["gt_boxes"], batch_arrays["gt_labels"],
+                  batch_arrays["gt_difficult"], batch_arrays["gt_valid"])
+            default_boxes = batch_arrays["default_boxes"]
+            loc_t, cls_t = encode_targets(*gt, default_boxes, num_classes,
+                                          float(obj.positive_iou_threshold),
+                                          float(obj.negative_iou_threshold))
+            cls_remapped, _, _ = remap_targets(
+                out["loc"].detach(), *gt, default_boxes,
+                float(obj.remap_classification_targets_iou_pos),
+                float(obj.remap_classification_targets_iou_neg))
+            # padded class rows are ignored everywhere
+            cvalid = batch_arrays["class_valid"][None, :, None]
+            cls_t = torch.where(cvalid, cls_t, -1)
+            cls_remapped = torch.where(cvalid, cls_remapped, -1)
+        with annotate("os2d.train.objective"):
+            losses = compute_objective(
+                self.objective_cfg, out["loc"], loc_t, out["cls"], cls_t,
+                cls_targets_remapped=cls_remapped,
+                cls_preds_for_neg=(None if tcfg.model.train_transform_on_negs
+                                   else out["cls_detached"]))
+        with annotate("os2d.train.backward"):
+            losses["loss"].backward()
 
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        if mesh is not None:
-            all_reduce_sum_(mesh, grads)
-        grad_norm = torch.sqrt(torch.stack([g.square().sum() for g in grads]).sum())
-        # torch-style clip_grad_norm_
-        scale = torch.clamp(float(tcfg.optim.max_grad_norm) / (grad_norm + 1e-6), max=1.0)
-        torch._foreach_mul_(grads, scale)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["grad_norm"] = grad_norm
-        keys = sorted(metrics)
-        values = dict(zip(keys, torch.stack([metrics[k] for k in keys]).tolist()))
+        with annotate("os2d.train.clip"):
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            if mesh is not None:
+                all_reduce_sum_(mesh, grads)
+            grad_norm = torch.sqrt(torch.stack([g.square().sum() for g in grads]).sum())
+            # torch-style clip_grad_norm_
+            scale = torch.clamp(float(tcfg.optim.max_grad_norm) / (grad_norm + 1e-6), max=1.0)
+            torch._foreach_mul_(grads, scale)
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["grad_norm"] = grad_norm
+            keys = sorted(metrics)
+        with annotate("os2d.wait.step_metrics"):
+            values = dict(zip(keys, torch.stack([metrics[k] for k in keys]).tolist()))
         if math.isfinite(values["grad_norm"]):
-            self.optimizer.step()
+            with annotate("os2d.train.optimizer"):
+                self.optimizer.step()
+        with annotate("os2d.train.release"):
+            # the graph and the activations go here, not as the frame returns
+            del fm, class_fm, out, losses
         return values
 
 
@@ -246,40 +264,42 @@ def prepare_batch_arrays(batch, device, class_pad_multiple: int = 4, pixel_forma
     back as a PackedYuv420, which `TrainStep` decodes in its preamble
     (`ops.pixel_format.upload_images`). A batch from a loader with a device
     class cache carries no class images: its class_gather resolves them on
-    the cache's device (os2d_tpu/engine/train.py:607-620)."""
-    resolve_pixel_format(pixel_format)
-    class_images = batch["class_images"]
-    c_real = len(batch["class_ids"])
-    c_pad = max(class_pad_multiple,
-                math.ceil(c_real / class_pad_multiple) * class_pad_multiple)
-    uploader = uploader or uploader_for(device)
-    up = uploader.upload
+    the cache's device (os2d_tpu/engine/train.py:607-620). Runs in span
+    `os2d.train.upload`."""
+    with annotate("os2d.train.upload"):
+        resolve_pixel_format(pixel_format)
+        class_images = batch["class_images"]
+        c_real = len(batch["class_ids"])
+        c_pad = max(class_pad_multiple,
+                    math.ceil(c_real / class_pad_multiple) * class_pad_multiple)
+        uploader = uploader or uploader_for(device)
+        up = uploader.upload
 
-    if class_images is None:
-        # a device class cache (data/class_cache.py): the class tensor is
-        # picked and flipped on its device, only the indices cross
-        g = batch["class_gather"]
-        class_tensor = g["cache"].gather(g["class_ids"], g["method_idx"], g["hflip"],
-                                         g["vflip"], c_pad).to(device)
-        class_valid = np.arange(c_pad) < c_real
-    else:
-        if len({im.shape for im in class_images}) != 1:
-            raise ValueError("train batches need one class-image shape; configure the train "
-                             "dataloader with a one-entry class shape palette")
-        class_arr, class_valid = pad_class_batch(class_images, c_real, c_pad)
-        class_tensor = up(class_arr)
+        if class_images is None:
+            # a device class cache (data/class_cache.py): the class tensor is
+            # picked and flipped on its device, only the indices cross
+            g = batch["class_gather"]
+            class_tensor = g["cache"].gather(g["class_ids"], g["method_idx"], g["hflip"],
+                                             g["vflip"], c_pad).to(device)
+            class_valid = np.arange(c_pad) < c_real
+        else:
+            if len({im.shape for im in class_images}) != 1:
+                raise ValueError("train batches need one class-image shape; configure the train "
+                                 "dataloader with a one-entry class shape palette")
+            class_arr, class_valid = pad_class_batch(class_images, c_real, c_pad)
+            class_tensor = up(class_arr)
 
-    arrays = {
-        "images": upload_images(uploader, batch["images"], pixel_format),
-        "class_images": class_tensor,
-        "class_valid": up(class_valid),
-        "gt_boxes": up(batch["gt_boxes"]),
-        "gt_labels": up(batch["gt_labels"]).long(),
-        "gt_difficult": up(batch["gt_difficult"]),
-        "gt_valid": up(batch["gt_valid"]),
-        "default_boxes": default_boxes_for_image_size(batch["img_size"], device=device),
-    }
-    return arrays, c_pad
+        arrays = {
+            "images": upload_images(uploader, batch["images"], pixel_format),
+            "class_images": class_tensor,
+            "class_valid": up(class_valid),
+            "gt_boxes": up(batch["gt_boxes"]),
+            "gt_labels": up(batch["gt_labels"]).long(),
+            "gt_difficult": up(batch["gt_difficult"]),
+            "gt_valid": up(batch["gt_valid"]),
+            "default_boxes": default_boxes_for_image_size(batch["img_size"], device=device),
+        }
+        return arrays, c_pad
 
 
 def dump_nan_reproducer(dump_dir, batch_arrays, model, optimizer, num_classes, extra=None,

@@ -40,6 +40,7 @@ from ..structures.feature_map import (
     FEATURE_MAP_STRIDE,
     compose_receptive_field,
 )
+from ..utils.profiling import host_constant
 
 TEMPLATE_H = ALIGNER_GRID_SIZE.h
 TEMPLATE_W = ALIGNER_GRID_SIZE.w
@@ -258,7 +259,7 @@ def head_forward(
     feats_t = class_head.class_feats.transpose(1, 2).reshape(c, t_dim, f)
     perm = None
     if corr_interior_first:
-        perm = torch.tensor(_interior_permutation(), device=device)
+        perm = host_constant(_interior_permutation(), device=device)
         feats_t = feats_t[:, perm]
     corr = correlation_gemm(fm.reshape(b * a, f), feats_t.reshape(c * t_dim, f), compute_dtype)
     corr = corr.reshape(b, h, w, c, t_dim).permute(0, 3, 1, 2, 4).contiguous()  # [B, C, H, W, T]

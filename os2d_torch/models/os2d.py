@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..structures.feature_map import FeatureMapSize, feature_map_size_for_image
+from ..utils.profiling import annotate
 from .head import ClassHead, QuantizedClassHead, build_class_head, dequantize_class_head, head_forward
 from .resnet import ResNetC4, fold_batchnorm_c4
 from .transform_net import TransformNet, fold_batchnorm_transform_net
@@ -166,19 +167,21 @@ class Os2dModel(nn.Module):
         """Feature maps + class head -> dict(loc, cls, cls_detached, corners,
         fm_size); differentiable when grad mode is on. A QuantizedClassHead
         (a chunk of an int8 bank) is dequantized to fp32 on its device first,
-        so the bank itself stays int8 (os2d_tpu/models/os2d.py:150-160)."""
-        if isinstance(class_head, QuantizedClassHead):
-            class_head = dequantize_class_head(class_head)
-        return head_forward(
-            self.transform_net,
-            feature_maps,
-            class_head,
-            simple_affine=self.config.use_simplified_affine_model,
-            use_inverse_geom_model=self.config.use_inverse_geom_model,
-            resample_precision=self.config.resample_precision,
-            corr_interior_first=self.config.corr_interior_first,
-            compute_dtype=self.compute_dtype,
-        )
+        so the bank itself stays int8 (os2d_tpu/models/os2d.py:150-160).
+        Runs in span `os2d.head`."""
+        with annotate("os2d.head"):
+            if isinstance(class_head, QuantizedClassHead):
+                class_head = dequantize_class_head(class_head)
+            return head_forward(
+                self.transform_net,
+                feature_maps,
+                class_head,
+                simple_affine=self.config.use_simplified_affine_model,
+                use_inverse_geom_model=self.config.use_inverse_geom_model,
+                resample_precision=self.config.resample_precision,
+                corr_interior_first=self.config.corr_interior_first,
+                compute_dtype=self.compute_dtype,
+            )
 
     def get_feature_map_size(self, img_size: FeatureMapSize) -> FeatureMapSize:
         return feature_map_size_for_image(img_size)

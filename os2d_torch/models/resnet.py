@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import all_reduce_sum
+from ..utils.profiling import annotate
 
 # number of bottleneck blocks per layer, through layer3 (C4)
 RESNET_DEPTHS = {
@@ -340,7 +341,8 @@ def _he_normal_(weight, generator):
 
 class ResNetC4(nn.Module):
     """images [N, H, W, 3] (already normalized) -> C4 features
-    [N, ceil(H/16), ceil(W/16), 1024]."""
+    [N, ceil(H/16), ceil(W/16), 1024]; each call runs in span
+    `os2d.backbone`."""
 
     def __init__(self, arch: str = "resnet50", device=None, compute_dtype=torch.float32,
                  use_group_norm: bool = False):
@@ -379,10 +381,11 @@ class ResNetC4(nn.Module):
         return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)  # pads with -inf
 
     def forward(self, images_nhwc):
-        x = self.stem(images_nhwc.permute(0, 3, 1, 2))
-        for block in self.blocks():
-            x = block(x, self.compute_dtype)
-        return x.permute(0, 2, 3, 1)
+        with annotate("os2d.backbone"):
+            x = self.stem(images_nhwc.permute(0, 3, 1, 2))
+            for block in self.blocks():
+                x = block(x, self.compute_dtype)
+            return x.permute(0, 2, 3, 1)
 
 
 def _fold_conv_bn(conv: Conv2d, bn):

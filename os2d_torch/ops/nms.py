@@ -5,7 +5,8 @@ Boxes are score-sorted and a greedy keep mask is computed by iterating a
 suppression relation to its fixpoint. The fixpoint equals exact greedy
 (score-descending) NMS; each sweep finalizes at least one more prefix
 position, so it ends in <= K sweeps (typically a handful). Each sweep waits
-for the device once (the fixpoint test); `fixpoint_sweeps` counts them.
+for the device once (the fixpoint test, span `os2d.wait.nms_sweep`);
+`fixpoint_sweeps` counts them. `nms_keep_mask` runs in span `os2d.nms`.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..structures.boxes import box_iou
+from ..utils.profiling import annotate
 
 # sweeps of the fixpoint since import (one host wait each); read and reset by
 # whoever measures them
@@ -35,8 +37,9 @@ def _dense_fixpoint(sboxes, svalid, iou_threshold: float):
     keep = svalid
     for _ in range(k):
         new_keep = svalid & ~torch.any(suppress & keep[..., :, None], dim=-2)
-        fixpoint_sweeps += 1
-        done = torch.equal(new_keep, keep)
+        with annotate("os2d.wait.nms_sweep"):
+            fixpoint_sweeps += 1
+            done = torch.equal(new_keep, keep)
         keep = new_keep
         if done:
             break
@@ -88,16 +91,17 @@ def nms_keep_mask(boxes, scores, valid, iou_threshold: float,
 
     Returns keep [..., K] bool in the ORIGINAL box order.
     """
-    k = boxes.shape[-2]
-    masked = torch.where(valid, scores, float("-inf"))
-    order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
-    sboxes = torch.gather(boxes, -2, order[..., None].expand(order.shape + (4,)))
-    svalid = torch.gather(valid, -1, order)
-    if k <= dense_limit:
-        keep = _dense_fixpoint(sboxes, svalid, iou_threshold)
-    else:
-        keep = _blocked_keep(sboxes, svalid, iou_threshold, block)
-    return torch.zeros_like(keep).scatter(-1, order, keep)
+    with annotate("os2d.nms"):
+        k = boxes.shape[-2]
+        masked = torch.where(valid, scores, float("-inf"))
+        order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
+        sboxes = torch.gather(boxes, -2, order[..., None].expand(order.shape + (4,)))
+        svalid = torch.gather(valid, -1, order)
+        if k <= dense_limit:
+            keep = _dense_fixpoint(sboxes, svalid, iou_threshold)
+        else:
+            keep = _blocked_keep(sboxes, svalid, iou_threshold, block)
+        return torch.zeros_like(keep).scatter(-1, order, keep)
 
 
 def top_k_stable(x, k: int):

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import host_constant
+
 
 def linspace(start: float, stop: float, num: int, device=None):
     """float32 linspace, value for value as JAX computes `jnp.linspace` with
@@ -29,7 +31,7 @@ def linspace(start: float, stop: float, num: int, device=None):
     f32 = torch.float32
     if num == 1:
         return torch.full((1,), start, dtype=f32, device=device)
-    r = torch.tensor(1.0 / (num - 1), dtype=f32, device=device)
+    r = host_constant(1.0 / (num - 1), dtype=f32, device=device)
     i = torch.arange(num - 1, dtype=f32, device=device)
     out = start * (1 - i * r) + i * (r * stop)
     return torch.cat([out, torch.full((1,), stop, dtype=f32, device=device)])
@@ -84,8 +86,8 @@ def _antialias_weight_matrix(in_size: int, out_size: int, device=None):
     falls outside the input. Every step runs in float32 as JAX runs it."""
     f32 = torch.float32
     inv_scale = 1.0 / (out_size / in_size)
-    inv_scale_t = torch.tensor(inv_scale, dtype=f32, device=device)
-    kernel_scale = torch.tensor(max(inv_scale, 1.0), dtype=f32, device=device)
+    inv_scale_t = host_constant(inv_scale, dtype=f32, device=device)
+    kernel_scale = host_constant(max(inv_scale, 1.0), dtype=f32, device=device)
     sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) * inv_scale_t - 0.5
     x = torch.abs(sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None])
     weights = torch.clamp(1.0 - x / kernel_scale, min=0.0)

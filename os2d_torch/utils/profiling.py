@@ -4,10 +4,14 @@ on torch.profiler.
 - `trace(logdir)` profiles a region (the CPU, and CUDA where a card is
   present) and writes a Chrome trace (`trace.json`, readable in Perfetto or
   chrome://tracing) into `logdir`;
-- `annotate(name)` names a region in that trace (`record_function`) and, on
-  a card, pushes an NVTX range of the same name for other CUDA tools;
-- `maybe_trace_from_env()` traces its region iff OS2D_PROFILE_DIR names a
-  directory: an observability hook that changes nothing of what runs;
+- `annotate(name)` is the port's one way to open a span: a
+  `record_function` of that name while a profiler records on the calling
+  thread (nothing otherwise), and on a card an NVTX range of the same name
+  for other CUDA tools. The port's spans, named `os2d.<layer>[.<part>]`,
+  mark its layer boundaries (README, "Tooling"); `os2d.wait.<why>` spans
+  mark each point where the host waits for the card to drain;
+- `host_constant(values, ...)` is `torch.tensor` of host values inside an
+  `os2d.wait.constant` span: on a card such a copy waits for the stream;
 - `StageTimer` sums wall time per named stage and synchronizes the card
   before it reads the clock, so that a stage's time includes its device work.
 """
@@ -32,28 +36,41 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
+class annotate:
+    """`with annotate(name):` opens the span `name` (see the module
+    docstring)."""
+
+    __slots__ = ("name", "_record", "_nvtx")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        # the profiler's state is thread-local: a span costs no
+        # record_function where no profiler records
+        self._record = None
+        if torch._C._autograd._profiler_enabled():
+            self._record = torch.profiler.record_function(self.name)
+            self._record.__enter__()
+        self._nvtx = torch.cuda.is_available()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._nvtx:
             torch.cuda.nvtx.range_pop()
+        if self._record is not None:
+            self._record.__exit__(*exc)
+        return False
 
 
-@contextlib.contextmanager
-def maybe_trace_from_env():
-    """Trace the region into $OS2D_PROFILE_DIR when it is set."""
-    logdir = os.environ.get("OS2D_PROFILE_DIR", "")
-    if not logdir:
-        yield None
-        return
-    with trace(logdir) as prof:
-        yield prof
+def host_constant(values, dtype=None, device=None) -> torch.Tensor:
+    """`torch.tensor(values, dtype=dtype, device=device)`: a pageable copy,
+    which on a card waits for the stream to drain (span
+    `os2d.wait.constant`)."""
+    with annotate("os2d.wait.constant"):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 class StageTimer:

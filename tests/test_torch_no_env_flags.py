@@ -6,8 +6,6 @@ config key (`Os2dConfig`, cfg.tpu.*); environment overrides live in the
 tools, chip_smoke.py and the tests, which pass explicit values in.
 
 Allowlist (each entry says why it is no such switch):
-- utils/profiling.py OS2D_PROFILE_DIR: names a trace directory; what runs
-  is unchanged.
 - parallel/mesh.py RANK, WORLD_SIZE, LOCAL_RANK (and MASTER_ADDR /
   MASTER_PORT through init_method="env://"): the rendezvous that torchrun
   describes; parallel/spawn.py writes the same variables for the ranks it
@@ -28,7 +26,6 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "os2d_torch"
 
 # (path relative to os2d_torch/, variable-name regex) pairs that may touch env
 ALLOWLIST = [
-    ("utils/profiling.py", r"OS2D_PROFILE_DIR"),
     ("parallel/mesh.py", r"RANK|WORLD_SIZE|LOCAL_RANK|MASTER_"),
     ("parallel/spawn.py", r"RANK=.*WORLD_SIZE=.*LOCAL_RANK="),
     ("api/app.py", r"OS2D_"),

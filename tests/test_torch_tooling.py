@@ -12,8 +12,8 @@
   the synthetic dataset trees of tests/test_torch_main.py: equal object-size
   statistics and eval scales;
 - `os2d_torch.utils.profiling`: `trace` writes a trace with the `annotate`d
-  region, `maybe_trace_from_env` only with OS2D_PROFILE_DIR, `StageTimer`
-  sums its stages.
+  region, `StageTimer` sums its stages (the port's own spans:
+  tests/test_torch_spans.py).
 """
 
 import json
@@ -159,21 +159,13 @@ def test_dataset_scales_match_the_jax_tool(tmp_path):
         assert r["eval_scale"] == int(dataset.image_size * 240 / stats[1])
 
 
-def test_trace_annotate_and_stage_timer(tmp_path, monkeypatch):
+def test_trace_annotate_and_stage_timer(tmp_path):
     x = torch.randn(64, 64)
     with profiling.trace(str(tmp_path / "t")):
         with profiling.annotate("os2d_region"):
             (x @ x).sum()
     trace = json.loads((tmp_path / "t" / "trace.json").read_text())
     assert any(e.get("name") == "os2d_region" for e in trace["traceEvents"])
-
-    monkeypatch.delenv("OS2D_PROFILE_DIR", raising=False)
-    with profiling.maybe_trace_from_env() as prof:
-        assert prof is None
-    monkeypatch.setenv("OS2D_PROFILE_DIR", str(tmp_path / "env"))
-    with profiling.maybe_trace_from_env() as prof:
-        (x @ x).sum()
-    assert prof is not None and (tmp_path / "env" / "trace.json").exists()
 
     timer = profiling.StageTimer()
     for _ in range(3):
