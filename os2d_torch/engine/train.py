@@ -59,6 +59,7 @@ from .mining import mine_hard_patches
 from .objective import ObjectiveConfig, compute_objective
 from .optimization import get_learning_rate, set_learning_rate, setup_lr
 from .targets import encode_targets, remap_targets
+from .train_graphs import BackboneGraphs
 from ..utils.logger import (
     CHECKPOINT_BACKENDS,
     add_to_meters_in_dict,
@@ -153,6 +154,7 @@ class TrainStep:
                                  device=model.device)
         self.std = torch.tensor(config.normalization_std, dtype=torch.float32,
                                 device=model.device)
+        self.backbone_graphs = BackboneGraphs()
 
     def __call__(self, batch_arrays, num_classes: int) -> Dict[str, float]:
         """Forward, backward, clip and update on `batch_arrays` (from
@@ -165,6 +167,12 @@ class TrainStep:
         `os2d.train.zero_grad`, `.forward`, `.targets`, `.objective`,
         `.backward`, `.clip`, `.optimizer` and `.release` (the graph and
         the activations freed).
+
+        On a card the backbone's two passes (the scenes, the class images)
+        replay CUDA graphs of their forward and backward
+        (`backbone_graphs`, engine/train_graphs.py): a new shape runs eager
+        once, is recorded the next time and replayed after, the same kernels
+        as the eager pass without their launches from Python.
 
         Two steps from one state on one batch agree to the bit under the
         port's defaults: the resample's backward sums in a fixed order, and
@@ -185,9 +193,12 @@ class TrainStep:
                 if isinstance(images, PackedYuv420):
                     images = decode_wire_to_u8(images)
                 images = images[local_rows(mesh, images.shape[0])]
-            fm = model.backbone(_normalize_u8(images, mean, std))
-            class_fm = model.label_branch(_normalize_u8(batch_arrays["class_images"], mean, std))
-            if not tcfg.model.train_features:
+            detached = not tcfg.model.train_features
+            graphs = self.backbone_graphs
+            fm = graphs("backbone", model.backbone, _normalize_u8(images, mean, std), detached)
+            class_fm = graphs("label_branch", model.label_branch,
+                              _normalize_u8(batch_arrays["class_images"], mean, std), detached)
+            if detached:
                 fm, class_fm = fm.detach(), class_fm.detach()
             out = model.apply_head(fm, build_class_head(class_fm))
             if mesh is not None:
