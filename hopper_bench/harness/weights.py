@@ -5,6 +5,13 @@
 all the tensors that take it), in the distributions of the configuration's
 `weights` entry, under torchvision's and OS2D's key names. The harness loads
 the result into the program and hands the same tensors to the reference.
+
+A norm slot is frozen BatchNorm (weight, bias, running mean and variance)
+or, where the configuration sets `"use_group_norm": true`, GroupNorm(32)
+in every slot of the backbone: a weight and a bias only, drawn as a
+BatchNorm slot's weight and bias are (`bn_weight`, `bn_residual_weight`,
+`bn_bias_std`). The TransformNet's two norms are frozen BatchNorm in every
+configuration.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from collections import OrderedDict
 import torch
 
 BN_KEYS = ("weight", "bias", "running_mean", "running_var")
+GN_KEYS = ("weight", "bias")
 # kinds drawn uniformly in [lo, hi], by the `weights` key that gives the range
 UNIFORM_RANGES = {"bn_weight": "bn_weight", "bn_residual_weight": "bn_residual_weight",
                   "bn_running_var": "bn_var"}
@@ -24,31 +32,35 @@ def param_specs(config):
     """[(name, shape, kind, fan)] of every tensor, in the model's key order;
     kind tells `make_state_dict` its distribution, fan its scale."""
     specs = []
+    backbone_keys = GN_KEYS if config.get("use_group_norm", False) else BN_KEYS
 
     def conv(name, cin, cout, k):
         specs.append((name + ".weight", (cout, cin, k, k), "conv", k * k * cout))
 
-    def bn(name, c, residual=False):
-        for key in BN_KEYS:
+    def bn(name, c, residual=False, keys=BN_KEYS):
+        for key in keys:
             kind = "bn_residual_weight" if residual and key == "weight" else "bn_" + key
             specs.append((f"{name}.{key}", (c,), kind, c))
 
+    def norm(name, c, residual=False):
+        bn(name, c, residual, backbone_keys)
+
     conv("backbone.conv1", 3, 64, 7)
-    bn("backbone.bn1", 64)
+    norm("backbone.bn1", 64)
     cin = 64
     for li, (blocks, width) in enumerate(zip(config["backbone_blocks"],
                                              config["backbone_widths"])):
         for bi in range(blocks):
             p = f"backbone.layer{li + 1}.{bi}"
             conv(p + ".conv1", cin, width, 1)
-            bn(p + ".bn1", width)
+            norm(p + ".bn1", width)
             conv(p + ".conv2", width, width, 3)
-            bn(p + ".bn2", width)
+            norm(p + ".bn2", width)
             conv(p + ".conv3", width, width * 4, 1)
-            bn(p + ".bn3", width * 4, residual=True)
+            norm(p + ".bn3", width * 4, residual=True)
             if bi == 0:
                 conv(p + ".downsample.0", cin, width * 4, 1)
-                bn(p + ".downsample.1", width * 4)
+                norm(p + ".downsample.1", width * 4)
             cin = width * 4
     n = config["template_size"]
     k0, k1, k2 = config["transform_kernels"]
@@ -73,8 +85,9 @@ def make_state_dict(config, seed, device):
     """{name: float32 tensor on `device`} drawn from `seed`: convolutions
     He-normal (fan out), BatchNorm's weight (the last of each residual
     branch in a smaller range), bias, running mean and variance as the
-    configuration's `weights` says, the TransformNet's trunk uniform in
-    +-1/sqrt(fan_in), its last layer normal around the identity transform."""
+    configuration's `weights` says (a GroupNorm slot's weight and bias
+    alike), the TransformNet's trunk uniform in +-1/sqrt(fan_in), its last
+    layer normal around the identity transform."""
     w = config["weights"]
     specs = param_specs(config)
     gen = torch.Generator(device=device).manual_seed(int(seed))

@@ -7,8 +7,12 @@ OS2D's key names and a configuration of `hopper_bench/configs/`.
 Every function takes the dtype it computes in: float32 for the reference
 (TF32 off), bfloat16 for the control that must come out as not correct.
 
-- `backbone`: ResNet-C4 (torchvision v1.5 bottlenecks, frozen BatchNorm),
-  NCHW.
+- `backbone`: ResNet-C4 (torchvision v1.5 bottlenecks), NCHW, every norm
+  slot frozen BatchNorm or, where the configuration sets `use_group_norm`,
+  GroupNorm(32) (`group_norm`: per sample and group of C/32 channels, the
+  mean and the biased variance over (C/32, H, W), eps 1e-5, then the
+  per-channel weight and bias; the statistics of the activations, so the
+  gradient goes through them).
 - `class_features`: class images through the backbone, resized to the
   15x15 template with align_corners, L2-normalized over channels
   (eps 1e-5 added to the norm).
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+GN_GROUPS = 32
 BOX_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 BBOX_XFORM_CLIP = math.log(1000.0 / 16)
 
@@ -52,6 +57,18 @@ def frozen_bn(x, sd, prefix, dtype):
     return x * scale[:, None, None] + shift[:, None, None]
 
 
+def group_norm(x, sd, prefix, dtype):
+    """(x - mean) / sqrt(var + eps) * w + b, the mean and the biased
+    variance of each sample's group of C/32 channels over (C/32, H, W),
+    in two passes, NCHW."""
+    n, c, h, w = x.shape
+    g = x.to(dtype).reshape(n, GN_GROUPS, c // GN_GROUPS * h * w)
+    d = g - g.mean(-1, keepdim=True)
+    y = (d * torch.rsqrt(d.square().mean(-1, keepdim=True) + BN_EPS)).reshape(n, c, h, w)
+    return (y * sd[prefix + "weight"].to(dtype)[:, None, None]
+            + sd[prefix + "bias"].to(dtype)[:, None, None])
+
+
 def conv(x, sd, name, dtype, stride=1, padding=0, bias=False):
     w = sd[name + ".weight"].to(dtype)
     b = sd[name + ".bias"].to(dtype) if bias else None
@@ -60,20 +77,21 @@ def conv(x, sd, name, dtype, stride=1, padding=0, bias=False):
 
 def backbone(images_nchw, sd, config, dtype, prefix="backbone."):
     """Normalized images [N, 3, H, W] -> C4 features [N, 1024, H/16, W/16]."""
+    norm = group_norm if config.get("use_group_norm", False) else frozen_bn
     x = images_nchw.to(dtype)
-    x = F.relu(frozen_bn(conv(x, sd, prefix + "conv1", dtype, 2, 3), sd, prefix + "bn1.", dtype))
+    x = F.relu(norm(conv(x, sd, prefix + "conv1", dtype, 2, 3), sd, prefix + "bn1.", dtype))
     x = F.max_pool2d(x, 3, 2, 1)
     for li, blocks in enumerate(config["backbone_blocks"]):
         for bi in range(blocks):
             p = f"{prefix}layer{li + 1}.{bi}."
             stride = 2 if (li > 0 and bi == 0) else 1
-            out = F.relu(frozen_bn(conv(x, sd, p + "conv1", dtype), sd, p + "bn1.", dtype))
-            out = F.relu(frozen_bn(conv(out, sd, p + "conv2", dtype, stride, 1), sd, p + "bn2.",
-                                   dtype))
-            out = frozen_bn(conv(out, sd, p + "conv3", dtype), sd, p + "bn3.", dtype)
+            out = F.relu(norm(conv(x, sd, p + "conv1", dtype), sd, p + "bn1.", dtype))
+            out = F.relu(norm(conv(out, sd, p + "conv2", dtype, stride, 1), sd, p + "bn2.",
+                              dtype))
+            out = norm(conv(out, sd, p + "conv3", dtype), sd, p + "bn3.", dtype)
             if bi == 0:
-                x = frozen_bn(conv(x, sd, p + "downsample.0", dtype, stride), sd,
-                              p + "downsample.1.", dtype)
+                x = norm(conv(x, sd, p + "downsample.0", dtype, stride), sd,
+                         p + "downsample.1.", dtype)
             x = F.relu(out + x)
     return x
 

@@ -102,4 +102,20 @@ def test_the_model_takes_every_field_of_the_configuration_file():
                     "class_image_size", "compute_dtype", "resample_precision"):
             assert getattr(got, key) == config[key], key
         assert got.normalization_mean == tuple(config["normalization_mean"])
-        assert model_config(dict(config, compute_dtype="bfloat16")).compute_dtype == "bfloat16"
+        assert not got.use_group_norm
+        assert model_config(dict(config, use_group_norm=True)).use_group_norm
+
+
+def test_a_field_the_reference_does_not_follow_is_refused():
+    import pytest
+
+    from hopper_bench.harness.common import FOLLOWED_FIELDS, model_config
+
+    config = json.loads((ROOT / bench()["configs"][0]["file"]).read_text())
+    with pytest.raises(ValueError, match="corr_interior_first"):
+        model_config(dict(config, corr_interior_first=False))
+    assert "corr_interior_first" not in FOLLOWED_FIELDS
+    for key, value in (("compute_dtype", "bfloat16"), ("resample_precision", "int8"),
+                       ("merge_branch_parameters", False)):
+        with pytest.raises(ValueError, match=key):
+            model_config(dict(config, **{key: value}))
