@@ -40,6 +40,17 @@ Phases, each printing one JSON line:
               them) with identity, near-identity, random and outside-the-map
               theta, and on C=128 at the largest level with identity theta;
               and in phase 8 on the main path's own theta at every level.
+     group_norm_kernel  the GroupNorm kernels (csrc/group_norm_nhwc.cu)
+              forward and backward at the slots of exp2's V2 training recipe
+              (GN_SLOTS: the stem, layer1's and layer3's bn3 of the 4 x
+              600-px scene pass, the stem and layer3's bn3 of the 16 x
+              240-px class pass) against their plain versions in fp64:
+              each output's error within twice F.group_norm's fp32 error
+              (and its autograd's) on the same input plus 1e-6 of the
+              output's largest magnitude; two calls equal to the bit; then
+              each slot's CUDA-event ms of the kernels, their plain versions
+              in fp32 and F.group_norm with its autograd backward, beside
+              the least time by bytes.
   3. planted  the planted-patch scenes of tests/test_end_to_end_eval.py
               through Evaluator.detect_images at the default tier: each patch
               must be the top valid detection of its class (IoU > 0.5), and
@@ -219,7 +230,10 @@ Then the model options, each with the main path's weights (phases 23-26):
               ResNet101-C4 forward with BN and with GN on a GN_CROP crop,
               card against CPU within R101_RTOL_TO_MAX of the largest
               feature; the bench dispatch and the pyramid + backbone alone,
-              GN and BN in turns.
+              GN and BN in turns. The planted run must launch the GroupNorm
+              forward, the first step (counted from a reset just before it,
+              eager at first sight) the forward and the backward 2 x 43
+              times each.
 Then evaluate()'s host side and the figures (phases 27-29):
  27. eval_prefetch  evaluate() over HOST_SCENES planted 1280x960 scenes
               written as files (batch 2, EVAL_PYRAMID, no TTA, threshold
@@ -354,7 +368,9 @@ gather kernel). The kernels line counts the launches of the timed
 dispatches of phases 6 (hat), 7 (gather) and 23 (int8) and of phase 10's
 loop (backward), with those of phases 21 and 27-29 added to the hat and the
 gather, those of phase 22's ranks to all three, and those of phases 30 and
-33-34 to the hat and the backward.
+33-34 to the hat and the backward; the GroupNorm kernels' those of phase
+26's planted run, first step and timed turns, with their times at the scene
+stem's slot (GN_SLOTS[0]).
 Then one {"kernels": [...]} line, the whole run's wall time
 ({"phase": "wall"}), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
@@ -512,6 +528,15 @@ INT8_SCORE_ATOL = 4e-4
 GRID_HEAD_ATOL = 1e-4
 GN_CROP = (320, 240)
 R101_RTOL_TO_MAX = 1e-4
+# phase group_norm_kernel: (name, N, C, H, W) of GroupNorm slots at exp2's V2
+# training recipe, and the fp64 truth's margin: each output's error within
+# GN_ATEN_FACTOR x F.group_norm's fp32 error plus GN_ATOL_TO_MAX of the
+# output's largest magnitude (tests/test_torch_group_norm_card.py's rule)
+GN_SLOTS = [("scene_stem", 4, 64, 300, 300), ("scene_layer1_bn3", 4, 256, 150, 150),
+            ("scene_layer3_bn3", 4, 1024, 38, 38), ("class_stem", 16, 64, 120, 120),
+            ("class_layer3_bn3", 16, 1024, 15, 15)]
+GN_GROUPS, GN_EPS = 32, 1e-5
+GN_ATEN_FACTOR, GN_ATOL_TO_MAX = 2.0, 1e-6
 # what prepare_batch_arrays reads of a train batch, sent to the ranks
 DIST_BATCH_KEYS = ("images", "class_images", "class_ids", "gt_boxes", "gt_labels",
                    "gt_difficult", "gt_valid", "img_size")
@@ -1589,6 +1614,106 @@ def _distributed_phase(work, train_cfg, batches, require_launches, device):
     return totals
 
 
+def group_norm_bytes(n, c, h, w):
+    """(forward, backward) least bytes of one GroupNorm slot: x read and y
+    written; x and dy read and dx written; the weight, bias, statistics and
+    per-channel gradients once each; fp32 (hopper_bench/counts/group_norm.py:
+    slot_bytes)."""
+    size = n * c * h * w
+    return (4 * (2 * size + 2 * c + 2 * n * GN_GROUPS),
+            4 * (3 * size + 3 * c + 2 * n * GN_GROUPS))
+
+
+def group_norm_kernels(gen):
+    """Phase group_norm_kernel: the GroupNorm kernels at GN_SLOTS against
+    their plain versions in fp64 and F.group_norm's fp32 error, two calls to
+    the bit, and each slot's times. Returns {"forward": {...}, "backward":
+    {...}}, the kernels line's max_abs_err, ms, plain_ms, bound_ms, bound_by
+    and library_ms (the times at GN_SLOTS[0])."""
+    import torch
+    import torch.nn.functional as F
+
+    from os2d_torch.ops import group_norm as gn
+
+    parts = ("y", "dx", "dweight", "dbias")
+    errs, aten_errs, repeat, times = {}, {}, {}, {}
+    for name, n, c, h, w in GN_SLOTS:
+        x = (torch.randn(n, c, h, w, generator=gen, device="cuda") * 2
+             + (torch.rand(1, c, 1, 1, generator=gen, device="cuda") * 2 - 1) * 3)
+        x = x.contiguous(memory_format=torch.channels_last)
+        dy = torch.randn(n, c, h, w, generator=gen, device="cuda").contiguous(
+            memory_format=torch.channels_last)
+        weight = torch.rand(c, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(c, generator=gen, device="cuda") * 0.1
+        y, mean, rstd = gn.group_norm_forward(x, GN_GROUPS, weight, bias, GN_EPS)
+        grads = gn.group_norm_backward(dy, x, GN_GROUPS, weight, mean, rstd)
+        y2, mean2, rstd2 = gn.group_norm_forward(x, GN_GROUPS, weight, bias, GN_EPS)
+        grads2 = gn.group_norm_backward(dy, x, GN_GROUPS, weight, mean, rstd)
+        repeat[name] = (torch.equal(y, y2) and torch.equal(mean, mean2)
+                        and torch.equal(rstd, rstd2)
+                        and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+        del y2, mean2, rstd2, grads2
+        x64, w64, b64, dy64 = (t.double() for t in (x, weight, bias, dy))
+        y64, mean64, rstd64 = gn.group_norm_reference(x64, GN_GROUPS, w64, b64, GN_EPS)
+        want = (y64, *gn.group_norm_backward_reference(dy64, x64, GN_GROUPS, w64, mean64,
+                                                       rstd64))
+        del x64, w64, b64, dy64, y64, mean64, rstd64
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, weight, bias)]
+        ya = F.group_norm(leaves[0], GN_GROUPS, leaves[1], leaves[2], GN_EPS)
+        aten = (ya.detach(), *torch.autograd.grad(ya, leaves, dy))
+        del ya
+        errs[name] = {p: float((g.double() - t).abs().max())
+                      for p, g, t in zip(parts, (y, *grads), want)}
+        aten_errs[name] = {p: float((g.double() - t).abs().max())
+                           for p, g, t in zip(parts, aten, want)}
+        scale = {p: float(t.abs().max()) for p, t in zip(parts, want)}
+        del aten, want
+        for p in parts:
+            if not errs[name][p] <= GN_ATEN_FACTOR * aten_errs[name][p] + GN_ATOL_TO_MAX * scale[p]:
+                raise SystemExit(f"group_norm_kernel: {p} at {name} is {errs[name][p]} from its "
+                                 f"plain version in fp64, F.group_norm's {aten_errs[name][p]}")
+        if not repeat[name]:
+            raise SystemExit(f"group_norm_kernel: two calls at {name} differ")
+
+        holder = {}
+
+        def aten_forward():
+            holder["y"] = F.group_norm(leaves[0], GN_GROUPS, leaves[1], leaves[2], GN_EPS)
+
+        def aten_backward():
+            torch.autograd.grad(holder["y"], leaves, dy, retain_graph=True)
+
+        aten_forward()
+        bound_ms = [b / HBM_BYTES_PER_S * 1e3 for b in group_norm_bytes(n, c, h, w)]
+        times[name] = {
+            "nchw": [n, c, h, w],
+            "ms": [cuda_ms(lambda: gn.group_norm_forward(x, GN_GROUPS, weight, bias, GN_EPS),
+                           20),
+                   cuda_ms(lambda: gn.group_norm_backward(dy, x, GN_GROUPS, weight, mean, rstd),
+                           20)],
+            "plain_ms": [
+                cuda_ms(lambda: gn.group_norm_reference(x, GN_GROUPS, weight, bias, GN_EPS), 5),
+                cuda_ms(lambda: gn.group_norm_backward_reference(dy, x, GN_GROUPS, weight, mean,
+                                                                 rstd), 5)],
+            "library_ms": [cuda_ms(aten_forward, 20), cuda_ms(aten_backward, 20)],
+            "bound_ms": bound_ms}
+        times[name]["roofline_pct"] = [100 * b / m for b, m in zip(bound_ms, times[name]["ms"])]
+        del x, dy, weight, bias, y, mean, rstd, grads, leaves, holder
+    emit({"phase": "group_norm_kernel", "groups": GN_GROUPS, "eps": GN_EPS,
+          "rule": f"err <= {GN_ATEN_FACTOR} x F.group_norm's + {GN_ATOL_TO_MAX} x max|want|",
+          "max_abs_err": errs, "aten_max_abs_err": aten_errs, "two_calls_bit_equal": repeat,
+          "order": "[forward, backward]", "library": "F.group_norm and its autograd backward",
+          "times": times})
+    stem = times[GN_SLOTS[0][0]]
+    return {direction: {
+        "max_abs_err": max(e[p] for e in errs.values() for p in direction_parts),
+        "ms": stem["ms"][i], "plain_ms": stem["plain_ms"][i],
+        "bound_ms": stem["bound_ms"][i], "bound_by": "bytes",
+        "library_ms": stem["library_ms"][i]}
+        for i, (direction, direction_parts) in enumerate(
+            (("forward", parts[:1]), ("backward", parts[1:])))}
+
+
 def planted_found(det):
     """For each planted patch, its class's top valid detection of its scene:
     IoU with the patch's box, score, and ok (valid and IoU > 0.5)."""
@@ -1635,7 +1760,9 @@ def model_options(counts, ctx):
     read() and require(phase, counts, kernel, expected); `ctx` the main
     path's objects (the model and its weights, the planted scenes, the bench
     batches and evaluator, the train batch and recipe). Returns the int8
-    kernel's launches in the timed int8 dispatches."""
+    kernel's launches in the timed int8 dispatches and the GroupNorm
+    kernels' in phase 26's planted run, first step and timed turns, by
+    kernel."""
     import numpy as np
     import torch
 
@@ -1843,7 +1970,11 @@ def model_options(counts, ctx):
     gn_state = Os2dModel(Os2dConfig(use_group_norm=True), seed=0).state_dict()
     card, cpu, gn_agree, gn_launches = planted_card_cpu(
         "group_norm", "hat_resample_correlation", state=gn_state, use_group_norm=True)
+    counts.require("group_norm", gn_launches, "group_norm_forward")
     gn_step = first_step_card_cpu("group_norm", use_group_norm=True)
+    # first sight: both passes eager, each of the 43 slots once a pass
+    for kernel in ("group_norm_forward", "group_norm_backward"):
+        counts.require("group_norm first step", gn_step["launches"], kernel, 2 * 43)
     r101 = {}
     crop = scene[:, :GN_CROP[1], :GN_CROP[0]]
     for gn in (False, True):
@@ -1864,6 +1995,7 @@ def model_options(counts, ctx):
         OPTION_ROUNDS)
     counts.require("group_norm turns", turn_counts, "hat_resample_correlation",
                    len(PYRAMID) * 2 * n_timed)
+    counts.require("group_norm turns", turn_counts, "group_norm_forward")
     # the backbone's share: the pyramid and backbone of a dispatch alone, in turns
     backbone = {"batch_norm": [], "group_norm": []}
     for i, (name, ev_b) in enumerate([("batch_norm", ctx.ev), ("group_norm", ev_gn),
@@ -1886,7 +2018,9 @@ def model_options(counts, ctx):
     for name, r in r101.items():
         if not r["relative_to_max"] <= R101_RTOL_TO_MAX:
             raise SystemExit(f"group_norm: ResNet101-C4 ({name}) card vs CPU {r}")
-    return int8_counts["int8_hat_resample_correlation"]
+    return {"int8_hat_resample_correlation": int8_counts["int8_hat_resample_correlation"],
+            **{k: gn_launches[k] + gn_step["launches"][k] + turn_counts[k]
+               for k in ("group_norm_forward", "group_norm_backward")}}
 
 
 HOST_SCENES = 48  # planted 1280x960 scenes of phase 27 (24 batches of 2)
@@ -3001,7 +3135,7 @@ def main(argv):
         trainable_parameters,
         trainval_loop,
     )
-    from os2d_torch.ops import hat_resample, int8_resample, nms, resample, resample_grad
+    from os2d_torch.ops import group_norm, hat_resample, int8_resample, nms, resample, resample_grad
     from os2d_torch.ops.cuda import BUILD_DIR, build_all
     from os2d_torch.ops.sampling import (
         hat_resample_operand,
@@ -3017,7 +3151,9 @@ def main(argv):
     kernels = {"resample_correlation": resample.KERNEL,
                "hat_resample_correlation": hat_resample.KERNEL,
                "int8_hat_resample_correlation": int8_resample.KERNEL,
-               "resample_correlation_backward": resample_grad.KERNEL}
+               "resample_correlation_backward": resample_grad.KERNEL,
+               "group_norm_forward": group_norm.FORWARD,
+               "group_norm_backward": group_norm.BACKWARD}
 
     def reset_counts():
         for k in kernels.values():
@@ -3036,7 +3172,7 @@ def main(argv):
     smi = nvidia_smi_line()
     model = Os2dModel(Os2dConfig(), seed=0)
     t0 = time.perf_counter()
-    logs = build_all([k.source for k in kernels.values()])
+    logs = build_all(sorted({k.source for k in kernels.values()}))
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -3180,6 +3316,7 @@ def main(argv):
                                            for e in errs["hat_resample_correlation"].values()),
                                        "vs_exact_gather": hat_exact_errs,
                                        "exact_margin": DEFAULT_TIER_MARGIN}})
+    gn_kernels = group_norm_kernels(gen)
 
     # ---- 3. planted patches at the default tier, the card against the CPU ----
     cfg = get_default_cfg()
@@ -4319,7 +4456,7 @@ def main(argv):
         train_cfg, [{k: b[k] for k in DIST_BATCH_KEYS} for b in dist_batches], require_launches)
 
     # ---- 23.-26. the model options: int8 tier and bank, grid path, GroupNorm ----
-    int8_launches = model_options(
+    option_launches = model_options(
         types.SimpleNamespace(reset=reset_counts, read=read_counts, require=require_launches),
         types.SimpleNamespace(
             model=model, base_state=base_state, scenes=scenes, norm=norm, cfg=cfg,
@@ -4394,7 +4531,7 @@ def main(argv):
         "route": "cuda",
         "source": "os2d_torch/csrc/int8_hat_resample.cu",
         "replaces": "os2d_tpu/ops/sampling.py:198",
-        "launches": int8_launches,
+        "launches": option_launches["int8_hat_resample_correlation"],
         "max_abs_err": max(errs["int8_hat_resample_correlation"].values()),
         "ms": int8_ms,
         "plain_ms": int8_plain_ms,
@@ -4417,7 +4554,14 @@ def main(argv):
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
         "library_ms": bwd_library_ms,
-    }]})
+    }] + [{
+        "name": f"group_norm_{direction}",
+        "route": "cuda",
+        "source": "os2d_torch/csrc/group_norm_nhwc.cu",
+        "replaces": "os2d_tpu/models/resnet.py:70",
+        "launches": option_launches[f"group_norm_{direction}"],
+        **gn_kernels[direction],
+    } for direction in ("forward", "backward")]})
     emit({"phase": "wall", "seconds": time.perf_counter() - t_run})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,10 @@ alternative, feature_extractor.py:96-105; os2d_tpu/models/resnet.py:70-77):
 statistics of the activations over (H, W, C/32) in fp32, eps 1e-5, a weight
 and a bias (state_dict keys `<bn>.weight`, `<bn>.bias`, no running stats),
 fp32 output in every compute dtype. It depends on the activations and does
-not fold.
+not fold. On the card it runs the port's channels-last kernels
+(`ops/group_norm.py`, `csrc/group_norm_nhwc.cu`: Welford statistics merged
+by Chan's rule in a fixed order, channels-last in and out, a repeatable
+backward); on the CPU, F.group_norm (two-pass statistics).
 
 Every convolution of the port goes through `conv2d`, whose fp32 gradients
 repeat to the bit on the card (`conv2d_backward`: the 1x1 weight gradients
@@ -47,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.group_norm import group_norm
 from ..parallel.mesh import all_reduce_sum
 from ..utils.profiling import annotate
 
@@ -272,8 +276,17 @@ class GroupNorm2d(nn.Module):
     """GroupNorm(32) over the channels of an NCHW tensor (a view of
     channels-last memory), as the JAX package's `_norm` computes it for a
     slot without running statistics: the statistics and the output in fp32,
-    eps 1e-5. Computed by F.group_norm on the fp32 input: its mean and
-    variance are JAX's two-pass ones up to the order of the fp32 sums
+    eps 1e-5, on the fp32 input (`ops/group_norm.py: group_norm`).
+
+    On the card the port's kernels compute it, on channels-last memory (as
+    every slot of `ResNetC4` has it; other input is copied to it first), and
+    keep the layout: per sample and group the mean and biased variance over
+    (H, W, C/32) by Welford's running moments, each thread's over its rows,
+    merged by Chan's rule in a fixed order (the block's rows, the group's
+    channels, then the chunks of rows in a fixed tree); the backward's sums
+    in a fixed order, so it repeats to the bit. On the CPU F.group_norm
+    computes it (counted in `ops.group_norm.fallbacks`), with two-pass
+    statistics: JAX's up to the order of the fp32 sums
     (tests/test_torch_group_norm.py holds the C4 features to JAX's within
     rtol and atol 1e-4)."""
 
@@ -287,7 +300,7 @@ class GroupNorm2d(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return F.group_norm(x.float(), GROUPNORM_NUMGROUPS, self.weight, self.bias, BN_EPS)
+        return group_norm(x.float(), GROUPNORM_NUMGROUPS, self.weight, self.bias, BN_EPS)
 
 
 class FoldedBatchNorm2d(nn.Module):

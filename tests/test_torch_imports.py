@@ -69,12 +69,16 @@ def test_int8_resample_wrapper_has_no_except():
     assert not _except_handlers("int8_resample.py")
 
 
+def test_group_norm_wrapper_has_no_except():
+    assert not _except_handlers("group_norm.py")
+
+
 def test_csrc_sources_have_wrappers():
     """Every CUDA source of the port has a CudaKernel that builds it."""
-    from os2d_torch.ops import hat_resample, int8_resample, resample, resample_grad
+    from os2d_torch.ops import group_norm, hat_resample, int8_resample, resample, resample_grad
 
     sources = {k.source for k in (resample.KERNEL, hat_resample.KERNEL, int8_resample.KERNEL,
-                                  resample_grad.KERNEL)}
+                                  resample_grad.KERNEL, group_norm.FORWARD, group_norm.BACKWARD)}
     assert sources == {p.name for p in (ROOT / "os2d_torch" / "csrc").glob("*.cu")}
 
 
