@@ -51,6 +51,14 @@ Phases, each printing one JSON line:
               each slot's CUDA-event ms of the kernels, their plain versions
               in fp32 and F.group_norm with its autograd backward, beside
               the least time by bytes.
+     frozen_bn_kernel  the frozen BatchNorm kernel (csrc/frozen_bn_act_nhwc.cu)
+              at FBN_SLOTS of the main path's 1.6 level (the stem's slot,
+              layer3's tail with and without its downsample): output equal
+              to ATen's eager chain to the bit and two calls to the bit
+              (it fails otherwise), the error against the plain version in
+              fp64; then each slot's CUDA-event ms of the kernel and of the
+              eager chain beside the least time by bytes, and the host's
+              microseconds a call of each.
   3. planted  the planted-patch scenes of tests/test_end_to_end_eval.py
               through Evaluator.detect_images at the default tier: each patch
               must be the top valid detection of its class (IoU > 0.5), and
@@ -370,7 +378,9 @@ loop (backward), with those of phases 21 and 27-29 added to the hat and the
 gather, those of phase 22's ranks to all three, and those of phases 30 and
 33-34 to the hat and the backward; the GroupNorm kernels' those of phase
 26's planted run, first step and timed turns, with their times at the scene
-stem's slot (GN_SLOTS[0]).
+stem's slot (GN_SLOTS[0]); the frozen BatchNorm kernel's those of phase 6's
+timed dispatches (it fails unless 40 a level: the stem and 3 slots in each
+of 13 bottlenecks), with its times at FBN_SLOTS[0].
 Then one {"kernels": [...]} line, the whole run's wall time
 ({"phase": "wall"}), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Without a CUDA card it prints no result and
@@ -537,6 +547,12 @@ GN_SLOTS = [("scene_stem", 4, 64, 300, 300), ("scene_layer1_bn3", 4, 256, 150, 1
             ("class_layer3_bn3", 16, 1024, 15, 15)]
 GN_GROUPS, GN_EPS = 32, 1e-5
 GN_ATEN_FACTOR, GN_ATOL_TO_MAX = 2.0, 1e-6
+# phase frozen_bn_kernel: (name, form, (N, C, H, W)) of frozen BatchNorm
+# slots at the main path's 1.6 level (B=2, 2048x1536 scenes); form 0 is
+# relu(bn(x)), 1 adds the block's input, 2 the downsample's BatchNorm
+FBN_SLOTS = [("stem", 0, (2, 64, 1024, 768)), ("layer3_tail", 1, (2, 1024, 96, 128)),
+             ("layer3_tail_downsample", 2, (2, 1024, 96, 128))]
+FBN_SLOTS_PER_PASS = 40  # ResNet50-C4: the stem and 3 slots in each of 13 bottlenecks
 # what prepare_batch_arrays reads of a train batch, sent to the ranks
 DIST_BATCH_KEYS = ("images", "class_images", "class_ids", "gt_boxes", "gt_labels",
                    "gt_difficult", "gt_valid", "img_size")
@@ -1712,6 +1728,90 @@ def group_norm_kernels(gen):
         "library_ms": stem["library_ms"][i]}
         for i, (direction, direction_parts) in enumerate(
             (("forward", parts[:1]), ("backward", parts[1:])))}
+
+
+def frozen_bn_bytes(form, n, c, h, w):
+    """Least bytes of one frozen BatchNorm slot: x read and y written, the
+    identity read too in a tail, and the parameter vectors once, fp32."""
+    return 4 * ((2 if form == 0 else 3) * n * c * h * w + (8 if form == 2 else 4) * c)
+
+
+def frozen_bn_kernels(gen):
+    """Phase frozen_bn_kernel: the frozen BatchNorm kernel at FBN_SLOTS
+    against ATen's eager chain (to the bit) and its plain version in fp64,
+    two calls to the bit, and each slot's times. Returns the kernels line's
+    max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms (the times
+    at FBN_SLOTS[0]; plain and library both the eager chain, which is the
+    plain version's arithmetic)."""
+    import copy
+
+    import torch
+
+    from os2d_torch.ops import frozen_bn as fb
+
+    report = {}
+    for name, form, shape in FBN_SLOTS:
+        n, c, h, w = shape
+
+        def operand():
+            return torch.randn(shape, generator=gen, device="cuda").contiguous(
+                memory_format=torch.channels_last)
+
+        def norm():
+            bn = fb.FrozenBatchNorm2d(c, device="cuda")
+            with torch.no_grad():
+                bn.weight.copy_(torch.rand(c, generator=gen, device="cuda") + 0.5)
+                bn.bias.copy_(torch.randn(c, generator=gen, device="cuda") * 0.5)
+                bn.running_mean.copy_(torch.randn(c, generator=gen, device="cuda"))
+                bn.running_var.copy_(torch.rand(c, generator=gen, device="cuda") * 2 + 0.01)
+            return bn
+
+        x = operand() * 2
+        bn = norm()
+        identity = None if form == 0 else operand()
+        identity_bn = norm() if form == 2 else None
+        args = (x, bn, identity, identity_bn)
+        with torch.no_grad():
+            y = fb.frozen_bn_act(*args)
+            y2 = fb.frozen_bn_act(*args)
+            eager = fb.frozen_bn_act_eager(*args)
+            bit_equal = torch.equal(y, eager)
+            repeat = torch.equal(y, y2)
+            del y2, eager
+            want = fb.frozen_bn_act_reference(
+                x.double(), copy.deepcopy(bn).double(),
+                None if identity is None else identity.double(),
+                None if identity_bn is None else copy.deepcopy(identity_bn).double())
+            err = float((y.double() - want).abs().max())
+            del want
+            if not (bit_equal and repeat):
+                raise SystemExit(f"frozen_bn_kernel: at {name} the kernel equals the eager "
+                                 f"chain {bit_equal}, two calls equal {repeat}")
+            host_us = {}
+            for label, fn in (("kernel", fb.frozen_bn_act), ("eager", fb.frozen_bn_act_eager)):
+                fn(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    fn(*args)
+                host_us[label] = (time.perf_counter() - t0) / 50 * 1e6
+                torch.cuda.synchronize()
+            bound_ms = frozen_bn_bytes(form, *shape) / HBM_BYTES_PER_S * 1e3
+            ms = cuda_ms(lambda: fb.frozen_bn_act(*args), 20)
+            eager_ms = cuda_ms(lambda: fb.frozen_bn_act_eager(*args), 20)
+        report[name] = {"nchw": list(shape), "form": form, "bit_equal_eager": bit_equal,
+                        "two_calls_bit_equal": repeat, "max_abs_err_fp64": err,
+                        "ms": ms, "eager_ms": eager_ms, "bound_ms": bound_ms,
+                        "roofline_pct": 100 * bound_ms / ms,
+                        "eager_roofline_pct": 100 * bound_ms / eager_ms,
+                        "host_us_per_call": host_us}
+        del x, identity, y, args
+    emit({"phase": "frozen_bn_kernel", "eps": fb.BN_EPS, "slots": report,
+          "eager": "FrozenBatchNorm2d's ATen ops, the add and F.relu, one launch each"})
+    stem = report[FBN_SLOTS[0][0]]
+    return {"max_abs_err": max(r["max_abs_err_fp64"] for r in report.values()),
+            "ms": stem["ms"], "plain_ms": stem["eager_ms"], "bound_ms": stem["bound_ms"],
+            "bound_by": "bytes", "library_ms": stem["eager_ms"]}
 
 
 def planted_found(det):
@@ -3135,7 +3235,15 @@ def main(argv):
         trainable_parameters,
         trainval_loop,
     )
-    from os2d_torch.ops import group_norm, hat_resample, int8_resample, nms, resample, resample_grad
+    from os2d_torch.ops import (
+        frozen_bn,
+        group_norm,
+        hat_resample,
+        int8_resample,
+        nms,
+        resample,
+        resample_grad,
+    )
     from os2d_torch.ops.cuda import BUILD_DIR, build_all
     from os2d_torch.ops.sampling import (
         hat_resample_operand,
@@ -3153,7 +3261,8 @@ def main(argv):
                "int8_hat_resample_correlation": int8_resample.KERNEL,
                "resample_correlation_backward": resample_grad.KERNEL,
                "group_norm_forward": group_norm.FORWARD,
-               "group_norm_backward": group_norm.BACKWARD}
+               "group_norm_backward": group_norm.BACKWARD,
+               "frozen_bn_act": frozen_bn.KERNEL}
 
     def reset_counts():
         for k in kernels.values():
@@ -3317,6 +3426,7 @@ def main(argv):
                                        "vs_exact_gather": hat_exact_errs,
                                        "exact_margin": DEFAULT_TIER_MARGIN}})
     gn_kernels = group_norm_kernels(gen)
+    fbn_kernel = frozen_bn_kernels(gen)
 
     # ---- 3. planted patches at the default tier, the card against the CPU ----
     cfg = get_default_cfg()
@@ -3484,6 +3594,8 @@ def main(argv):
                     and d["valid"].any()):
                 raise SystemExit(f"{phase}: non-finite or no detections")
         require_launches(phase, counts, kernel, len(PYRAMID) * n_timed)
+        require_launches(phase, counts, "frozen_bn_act",
+                         FBN_SLOTS_PER_PASS * len(PYRAMID) * n_timed)
         median = float(np.median(times))
         emit({"phase": phase, "resample_precision": m.config.resample_precision,
               "images": f"{BATCH}x{IMG_W}x{IMG_H} uint8", "levels": len(sizes),
@@ -4561,7 +4673,14 @@ def main(argv):
         "replaces": "os2d_tpu/models/resnet.py:70",
         "launches": option_launches[f"group_norm_{direction}"],
         **gn_kernels[direction],
-    } for direction in ("forward", "backward")]})
+    } for direction in ("forward", "backward")] + [{
+        "name": "frozen_bn_act",
+        "route": "cuda",
+        "source": "os2d_torch/csrc/frozen_bn_act_nhwc.cu",
+        "replaces": "os2d_tpu/models/resnet.py:57",
+        "launches": main_counts["frozen_bn_act"],
+        **fbn_kernel,
+    }]})
     emit({"phase": "wall", "seconds": time.perf_counter() - t_run})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

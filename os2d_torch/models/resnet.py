@@ -16,6 +16,12 @@ and the C4 output are fp32). `fold_batchnorm_c4` folds every BatchNorm into
 its convolution for inference; a folded bias is rounded to the compute dtype
 and added in it, so the folded bfloat16 backbone is bfloat16 end to end.
 
+Each frozen BatchNorm slot (`FrozenBatchNorm2d`, defined in
+`ops/frozen_bn.py`) with its ReLU, and bn3 with a bottleneck's residual add,
+goes through `ops/frozen_bn.py: frozen_bn_act`: one CUDA kernel launch a
+slot on the card where no gradient is recorded, ATen's eager chain
+elsewhere, the two equal to the bit.
+
 With `use_group_norm` every normalization is GroupNorm(32) (the reference's
 alternative, feature_extractor.py:96-105; os2d_tpu/models/resnet.py:70-77):
 statistics of the activations over (H, W, C/32) in fp32, eps 1e-5, a weight
@@ -50,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.frozen_bn import BN_EPS, FrozenBatchNorm2d, frozen_bn_act
 from ..ops.group_norm import group_norm
 from ..parallel.mesh import all_reduce_sum
 from ..utils.profiling import annotate
@@ -66,7 +73,6 @@ RESNET_FULL_DEPTHS = {
     "resnet101": (3, 4, 23, 3),
 }
 
-BN_EPS = 1e-5
 GROUPNORM_NUMGROUPS = 32
 
 
@@ -239,39 +245,6 @@ class Conv2d(nn.Module):
         return conv2d(x.to(dtype), self.weight.to(dtype), self.bias, self.stride, self.padding)
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """BatchNorm in inference form (running statistics), as the reference
-    freezes it (os2d/modeling/model.py:159-160), computed in the `_norm` form
-    of the JAX package: x * (scale * rsqrt(var + eps)) + (bias - mean * that).
-
-    All four tensors are parameters: the JAX trainer differentiates and
-    updates every leaf of its params, BatchNorm's mean and var included
-    (os2d_tpu/engine/train.py:202-217), and the port takes the same step.
-    They keep torchvision's names, so checkpoints map one to one."""
-
-    def __init__(self, channels: int, device=None):
-        super().__init__()
-        for name in ("weight", "bias", "running_mean", "running_var"):
-            self.register_parameter(name, nn.Parameter(torch.empty(channels, device=device)))
-
-    def reset_parameters(self):
-        self.weight.fill_(1.0)
-        self.bias.zero_()
-        self.running_mean.zero_()
-        self.running_var.fill_(1.0)
-
-    def folding_factor(self):
-        """f = scale * rsqrt(var + eps): BN(y) = y * f + (bias - mean * f)."""
-        return self.weight * torch.rsqrt(self.running_var + BN_EPS)
-
-    def forward(self, x):
-        scale = self.folding_factor()
-        shift = self.bias - self.running_mean * scale
-        # fp32 for fp32 and bf16 inputs (fp64 stays fp64)
-        return (x.to(torch.promote_types(x.dtype, torch.float32)) * scale[:, None, None]
-                + shift[:, None, None])
-
-
 class GroupNorm2d(nn.Module):
     """GroupNorm(32) over the channels of an NCHW tensor (a view of
     channels-last memory), as the JAX package's `_norm` computes it for a
@@ -335,12 +308,15 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x, dtype=torch.float32):
-        out = F.relu(self.bn1(self.conv1(x, dtype)))
-        out = F.relu(self.bn2(self.conv2(out, dtype)))
-        out = self.bn3(self.conv3(out, dtype))
-        identity = x if self.downsample is None else self.downsample[1](
-            self.downsample[0](x, dtype))
-        return F.relu(out + identity)
+        """Each norm with its ReLU, and bn3 with the residual add, through
+        `ops/frozen_bn.py: frozen_bn_act` (one kernel launch a slot where it
+        applies)."""
+        out = frozen_bn_act(self.conv1(x, dtype), self.bn1)
+        out = frozen_bn_act(self.conv2(out, dtype), self.bn2)
+        out = self.conv3(out, dtype)
+        if self.downsample is None:
+            return frozen_bn_act(out, self.bn3, x)
+        return frozen_bn_act(out, self.bn3, self.downsample[0](x, dtype), self.downsample[1])
 
 
 def _he_normal_(weight, generator):
@@ -390,7 +366,7 @@ class ResNetC4(nn.Module):
 
     def stem(self, x):
         """conv1, bn1, ReLU and the 3x3 max pool on NCHW x."""
-        x = F.relu(self.bn1(self.conv1(x, self.compute_dtype)))
+        x = frozen_bn_act(self.conv1(x, self.compute_dtype), self.bn1)
         return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)  # pads with -inf
 
     def forward(self, images_nhwc):

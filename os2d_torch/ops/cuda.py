@@ -6,9 +6,11 @@ Each source in `os2d_torch/csrc/` is compiled by `nvcc` for Hopper
 The library's file name carries a hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing is built when a module is
-imported: the first launch (or `build_all`) builds. Building and loading
-hold one lock of the module, so threads that launch a kernel for the first
-time at once (a server's request threads) build and load each library once.
+imported: the first launch of any kernel builds every source not yet built,
+all nvcc processes at once (`build_all`), so a run waits for one build
+however many kernels it meets. Building and loading hold one lock of the
+module, so threads that launch a kernel for the first time at once (a
+server's request threads) build and load each library once.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "os2d_torch"
@@ -54,6 +58,11 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 
 
+def all_sources():
+    """Every CUDA source of the port, by file name."""
+    return sorted(p.name for p in CSRC_DIR.glob("*.cu"))
+
+
 def build_all(sources: Sequence[str]) -> Dict[str, str]:
     """Compile every source whose library is missing, all nvcc processes
     started together, and wait for each. Returns {source: compiler output}
@@ -82,6 +91,14 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
         return logs
 
 
+def aligned(t, memory_format=torch.contiguous_format):
+    """Tensor t contiguous in `memory_format` at a 16-byte aligned address,
+    as the kernels' vector loads read it: t itself where it is, else a
+    copy."""
+    t = t.contiguous(memory_format=memory_format)
+    return t.clone(memory_format=memory_format) if t.data_ptr() % 16 else t
+
+
 class CudaKernel:
     """One C entry point of one CUDA source, loaded at first launch.
 
@@ -101,7 +118,7 @@ class CudaKernel:
         if self._fn is None:
             with _BUILD_LOCK:
                 if self._fn is None:
-                    build_all([self.source])
+                    build_all(all_sources())
                     lib = ctypes.CDLL(str(library_path(self.source)))
                     fn = getattr(lib, self.symbol)
                     fn.argtypes = self.argtypes

@@ -35,7 +35,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .cuda import CudaKernel
+from .cuda import CudaKernel, aligned
 
 # rows a thread walks in one chunk of a row-parallel kernel (a multiple of
 # the kernels' kRowBatch, 4)
@@ -68,13 +68,6 @@ def group_norm(x, groups: int, weight, bias, eps: float):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
         return _GroupNormChannelsLast.apply(x, groups, weight, bias, eps)
     return group_norm_forward(x, groups, weight, bias, eps)[0]
-
-
-def aligned(t, memory_format=torch.contiguous_format):
-    """t contiguous in `memory_format` at a 16-byte aligned address: t
-    itself where it is, else a copy."""
-    t = t.contiguous(memory_format=memory_format)
-    return t.clone(memory_format=memory_format) if t.data_ptr() % 16 else t
 
 
 def refusal(*tensors):

@@ -58,7 +58,8 @@ def test_concurrent_first_calls_build_and_load_once():
             mock.patch.object(cuda.ctypes, "CDLL", fake_cdll):
         fns = []
         _run_together(lambda: fns.append(kernel._function()))
-        assert builds == [["resample.cu"]]
+        # one build, of every source at once
+        assert builds == [cuda.all_sources()] and "resample.cu" in builds[0]
         assert len(loads) == 1
         assert len(fns) == THREADS and all(f is fns[0] for f in fns)
 

@@ -10,8 +10,9 @@
   app imports here; the pretrainer, the yuv420 wire and the checkpoint
   backends load none of those modules in a fresh process either.
 - The kernel wrappers (the fp32 gather, the bf16 hat resample, the int8
-  hat resample and the resample's backward) have no `except` that could turn
-  a failed kernel into a silent CPU fallback; every CUDA source has one.
+  hat resample, the resample's backward, GroupNorm and the frozen
+  BatchNorm) have no `except` that could turn a failed kernel into a
+  silent CPU fallback; every CUDA source has one.
 - Os2dModel targets CUDA unless told otherwise, and raises without it.
 """
 
@@ -73,12 +74,24 @@ def test_group_norm_wrapper_has_no_except():
     assert not _except_handlers("group_norm.py")
 
 
+def test_frozen_bn_wrapper_has_no_except():
+    assert not _except_handlers("frozen_bn.py")
+
+
 def test_csrc_sources_have_wrappers():
     """Every CUDA source of the port has a CudaKernel that builds it."""
-    from os2d_torch.ops import group_norm, hat_resample, int8_resample, resample, resample_grad
+    from os2d_torch.ops import (
+        frozen_bn,
+        group_norm,
+        hat_resample,
+        int8_resample,
+        resample,
+        resample_grad,
+    )
 
     sources = {k.source for k in (resample.KERNEL, hat_resample.KERNEL, int8_resample.KERNEL,
-                                  resample_grad.KERNEL, group_norm.FORWARD, group_norm.BACKWARD)}
+                                  resample_grad.KERNEL, group_norm.FORWARD, group_norm.BACKWARD,
+                                  frozen_bn.KERNEL)}
     assert sources == {p.name for p in (ROOT / "os2d_torch" / "csrc").glob("*.cu")}
 
 
