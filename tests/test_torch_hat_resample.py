@@ -1,7 +1,7 @@
 """The port's `"default"`-tier resample (`os2d_torch.ops.hat_resample`) on the
 CPU, where the wrapper runs its plain version `hat_resample_reference`; the
 CUDA kernel is held against that plain version on the card by
-tests/test_torch_kernels_card.py and chip_smoke.py.
+tests/test_torch_kernels_card.py and tests/test_torch_eval_card.py.
 
 - Against the JAX hat kernel `hat_resample_correlation_map_pallas` in
   interpret mode, at the shapes of tests/test_pallas_resample.py plus an

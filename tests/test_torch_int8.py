@@ -3,7 +3,7 @@
 resample tier (`resample_precision="int8"`), on the CPU, where the tier's
 wrapper runs its plain version `int8_hat_resample_reference`; the CUDA
 kernel (csrc/int8_hat_resample.cu) is held against that plain version on
-the card by tests/test_torch_kernels_card.py and chip_smoke.py.
+the card by tests/test_torch_kernels_card.py and tests/test_torch_eval_card.py.
 
 - `quantize_class_head`: int8 values equal to JAX's, scales within rtol
   1e-7; the dequantized bank equal.

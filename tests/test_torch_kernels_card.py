@@ -89,7 +89,7 @@ def _inputs(b, c, h, w, gen, kind, t_full=225, t_side=11):
     t = t_side * t_side
     corr = torch.tanh(torch.randn(b, c, h, w, t_full, generator=gen, device="cuda"))
     shape = (b, c, t, h * w)
-    if kind in ("uniform", "outside"):
+    if kind in ("uniform", "outside", "half"):
         # "outside" reaches 0.5 past each border: the gather clamps, the hat
         # form drops what lies outside the map
         pad = 0.5 if kind == "outside" else 0.0
@@ -97,6 +97,9 @@ def _inputs(b, c, h, w, gen, kind, t_full=225, t_side=11):
         py = torch.rand(shape, generator=gen, device="cuda") * (h - 1 + 2 * pad) - pad
         px[:, :, :5], py[:, :, 5:10] = 0.0, h - 1.0  # exactly on the borders
         py[:, :, 20:25] = torch.floor(py[:, :, 20:25])  # integer rows
+        if kind == "half":  # half-way hat weights: 127 * 0.5 rounds half to even
+            px = (torch.floor(px) + 0.5).clamp(max=w - 1)
+            py = (torch.floor(py) + 0.5).clamp(max=h - 1)
     elif kind == "collapsed":
         px = (torch.rand(b, c, 1, 1, generator=gen, device="cuda") * (w - 1)).expand(shape)
         py = (torch.rand(b, c, 1, 1, generator=gen, device="cuda") * (h - 1)).expand(shape)
@@ -131,9 +134,13 @@ SHAPES = RAGGED + [(2, 16, h, w) for h, w in BENCH_FMS] + [(2, 128, 96, 128)]
 KINDS = ["uniform", "near_identity"]
 CASES = ([(shape, kind) for shape in SHAPES for kind in KINDS]
          + [(shape, "outside") for shape in RAGGED])
+# a map taller than 256 rows, and half-way coordinates on the ragged shapes
+# and the largest level
+MORE_CASES = ([((1, 2, 300, 7), "uniform")]
+              + [(shape, "half") for shape in RAGGED + [(2, 16, 96, 128)]])
 
 
-@pytest.mark.parametrize("shape,kind", CASES)
+@pytest.mark.parametrize("shape,kind", CASES + MORE_CASES)
 def test_resample_kernel_matches_plain(shape, kind, cuda_gen):
     corr, px, py, mask_t = _inputs(*shape, cuda_gen, kind)
     before = resample.KERNEL.launches
@@ -152,7 +159,7 @@ def test_resample_kernel_rejects_mixed_devices(cuda_gen):
         resample.resample_correlation(corr, px.cpu(), py, mask_t)
 
 
-@pytest.mark.parametrize("shape,kind", CASES + [((1, 2, 300, 7), "uniform")])  # and H > 256
+@pytest.mark.parametrize("shape,kind", CASES + MORE_CASES)
 def test_hat_kernel_matches_plain(shape, kind, cuda_gen):
     corr, px, py, mask_t = _inputs(*shape, cuda_gen, kind)
     before = hat_resample.KERNEL.launches
@@ -202,8 +209,8 @@ def _theta_inputs(b, c, h, w, gen, kind):
 
 
 THETA_KINDS = ["identity", "near_identity", "random", "outside"]
-THETA_CASES = [(shape, kind) for shape in RAGGED + [(2, 16, h, w) for h, w in BENCH_FMS]
-               for kind in THETA_KINDS]
+THETA_CASES = ([(shape, kind) for shape in RAGGED + [(2, 16, h, w) for h, w in BENCH_FMS]
+                for kind in THETA_KINDS] + [((2, 128, 96, 128), "identity")])
 
 
 @pytest.mark.parametrize("shape,kind", THETA_CASES)
@@ -228,13 +235,9 @@ def test_int8_theta_kernel_matches_plain(shape, kind, cuda_gen):
     assert torch.equal(got, int8_resample.resample_correlation_int8(corr, px, py, mask_t))
 
 
-@pytest.mark.parametrize("shape,kind", CASES + [((2, 3, 19, 23), "half"),
-                                         ((2, 32800, 3, 2), "uniform")])
+@pytest.mark.parametrize("shape,kind", CASES + MORE_CASES + [((2, 32800, 3, 2), "uniform")])
 def test_int8_kernel_matches_plain(shape, kind, cuda_gen):
-    corr, px, py, mask_t = _inputs(*shape, cuda_gen, "uniform" if kind == "half" else kind)
-    if kind == "half":  # half-way hat weights: 127 * 0.5 rounds half to even
-        px, py = (torch.floor(px) + 0.5).clamp(max=shape[3] - 1), torch.floor(py) + 0.5
-        px, py = px.contiguous(), py.clamp(max=shape[2] - 1).contiguous()
+    corr, px, py, mask_t = _inputs(*shape, cuda_gen, kind)
     before = int8_resample.KERNEL.launches
     got = int8_resample.resample_correlation_int8(corr[..., :121], px, py, mask_t)
     torch.cuda.synchronize()
@@ -356,7 +359,8 @@ def test_backward_kernel_clears_its_scratch(cuda_gen):
 
 @pytest.mark.parametrize("shape,kind,t_full", [((4, 16, 38, 38), k, 225) for k in BACKWARD_KINDS]
                          + [((2, 3, 19, 23), "near_identity", t) for t in (128, 121)]
-                         + [((2, 32800, 3, 2), "uniform", 128)])
+                         + [((2, 32800, 3, 2), "uniform", 128)]
+                         + [(shape, k, 225) for shape in RAGGED for k in BACKWARD_KINDS])
 def test_backward_two_calls_equal_to_the_bit(shape, kind, t_full, cuda_gen):
     """dcorr, dpx and dpy repeat to the bit: no two threads add into one
     value."""
@@ -389,12 +393,15 @@ def test_train_function_launches_the_backward_kernel(precision, cuda_gen):
         torch.testing.assert_close(got, w, rtol=RTOL, atol=ATOL)
 
 
-# ---- the numeric modes and the blocked NMS on the card (chip_smoke.py's
-# phases numeric_modes and nms_blocked, at small sizes) ----
+# ---- the numeric modes and the blocked NMS on the card ----
 BF16_RULE = 0.25  # each backbone convolution on the CPU's own input
-# stages of several bf16 convolutions (a bottleneck, the head through the
-# TransformNet): see chip_smoke.BF16_STAGE_RULE (measured up to 0.36 and
-# 0.47 here)
+# stages of several bf16 convolutions (the stem, a bottleneck, the head
+# through the TransformNet's three convolutions): cuDNN sums each
+# convolution's fp32 products in another order than the CPU, a few
+# roundings flip, and the flips spread through the convolutions that follow
+# (measured up to 0.36 for a bottleneck and 0.47 for the head on random
+# inputs, 0.28 and 0.38 on the planted crop); the port's CPU stages sit
+# within 0.25 of JAX's (tests/test_torch_numeric_modes.py)
 BF16_STAGE_RULE = 0.6
 
 
@@ -407,44 +414,106 @@ def _crowded_boxes(lead, k, gen):
     return boxes, scores, torch.rand(lead + (k,), generator=gen) > 0.01
 
 
+def _decoded_boxes(which):
+    """Decoded candidates of random loc and cls on the CPU: "cross_class",
+    33 class rows of one 320x320 level after a pre_top_k of 1024 and a
+    top_k of 256, flattened for the cross-class NMS (8448 boxes); or
+    "bench_rows", every anchor of a benchmark image (1280x960, 7 levels,
+    39,580 anchors) for 2 class rows."""
+    import numpy as np
+
+    from os2d_torch.engine.decode import (
+        decode_pyramid,
+        decode_single_level,
+        default_boxes_for_image_size,
+    )
+    from os2d_torch.structures.feature_map import FeatureMapSize, feature_map_size_for_image
+
+    rng = np.random.default_rng(0)
+
+    def draws(*shape):
+        return (torch.from_numpy(rng.normal(0, 0.1, shape[:-1] + (4, shape[-1])).astype(
+            np.float32)), torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)))
+
+    loc, cls = draws(33, 400)  # drawn first either way
+    if which == "cross_class":
+        rows = decode_pyramid([loc], [cls], [FeatureMapSize(w=320, h=320)], [(1.0, 1.0)],
+                              nms_iou_threshold=0.3, pre_top_k=1024, top_k=256)
+        return rows["boxes"].reshape(-1, 4), rows["scores"].reshape(-1), rows["valid"].reshape(-1)
+    levels = []
+    for s in (0.5, 0.625, 0.8, 1, 1.2, 1.4, 1.6):
+        size = FeatureMapSize(w=int(1280 * s), h=int(960 * s))
+        fm = feature_map_size_for_image(size)
+        loc, cls = draws(1, 2, fm.h * fm.w)
+        levels.append(decode_single_level(loc, cls, default_boxes_for_image_size(size),
+                                          (size.w, size.h), (1280 / size.w, 960 / size.h),
+                                          float("-inf")))
+    return [torch.cat(parts, dim=-2 if parts[0].dim() == 4 else -1) for parts in zip(*levels)]
+
+
 @pytest.mark.parametrize("lead,k,dense_limit,block", [
-    ((), 8193, 8192, 2048), ((2,), 10000, 8192, 2048), ((3,), 700, 100, 64)])
+    ((), 8193, 8192, 2048), ((2,), 10000, 8192, 2048), ((3,), 700, 100, 64),
+    ("cross_class", None, None, None), ("bench_rows", None, None, None)])
 def test_nms_blocked_card_matches_cpu(lead, k, dense_limit, block, cuda_gen):
     """Above dense_limit, the same candidates keep the same boxes on the card
-    as on the CPU (each IoU is one rounded op per step on both)."""
+    as on the CPU (each IoU is one rounded op per step on both): crowded
+    random boxes with tied scores, and decoded candidates at the default
+    dense_limit and block."""
     from os2d_torch.ops import nms
 
-    args = _crowded_boxes(lead, k, torch.Generator().manual_seed(k))
-    want = nms.nms_keep_mask(*args, 0.3, dense_limit=dense_limit, block=block)
-    got = nms.nms_keep_mask(*(x.cuda() for x in args), 0.3, dense_limit=dense_limit,
-                            block=block)
+    if isinstance(lead, str):
+        args, limits = _decoded_boxes(lead), {}
+    else:
+        args = _crowded_boxes(lead, k, torch.Generator().manual_seed(k))
+        limits = {"dense_limit": dense_limit, "block": block}
+    want = nms.nms_keep_mask(*args, 0.3, **limits)
+    got = nms.nms_keep_mask(*(x.cuda() for x in args), 0.3, **limits)
     assert torch.equal(got.cpu(), want)
-    assert 0 < int(want.sum()) < int(args[2].sum())
+    if lead != "bench_rows":
+        assert 0 < int(want.sum()) < int(args[2].sum())
 
 
 def _rms(x):
     return float(x.double().pow(2).mean().sqrt())
 
 
-def _bf16_rule(got, want16, want32):
+def _bf16_rule(got, want16, want32, exact_ok=False):
+    """RMS(got - want16) / RMS(want16 - want32); with `exact_ok`, 0 where
+    bf16 and fp32 agree exactly and `got` does too."""
     assert got.dtype == want16.dtype
     scale = _rms(want16.float() - want32.float())
+    diff = _rms(got.cpu().float() - want16.float())
+    if exact_ok and scale == 0:
+        assert diff == 0
+        return 0.0
     assert scale > 0, "bf16 and fp32 agree exactly: the rule holds nothing"
-    return _rms(got.cpu().float() - want16.float()) / scale
+    return diff / scale
 
 
+@pytest.mark.parametrize("inputs", ["random", "planted"])
 @pytest.mark.parametrize("folded", [False, True])
-def test_bf16_modes_card_match_cpu(folded, cuda_gen):
-    """bf16 compute, folded and unfolded: the stem, every bottleneck and the
-    head on the card against the CPU on the CPU's own inputs, by the bf16
-    rule (RMS(card - cpu_bf16) <= 0.25 RMS(cpu_bf16 - cpu_fp32) for each
-    convolution, 0.6 for the stages); the head launches the hat kernel
-    once."""
+def test_bf16_modes_card_match_cpu(folded, inputs, cuda_gen):
+    """bf16 compute, folded and unfolded: the stem, every bottleneck, the
+    class bank (where the features are bf16) and the head on the card
+    against the CPU on the CPU's own inputs, by the bf16 rule (RMS(card -
+    cpu_bf16) <= 0.25 RMS(cpu_bf16 - cpu_fp32) for each convolution, 0.6 for
+    the stages); the head launches the hat kernel once. Inputs: random
+    images and a CPU-seeded model, or a 256x320 crop of the first planted
+    scene (tests/torch_card_scenes.py) holding its patch and the card-seeded
+    model of the eval card tests."""
     from os2d_torch.models import Os2dConfig, Os2dModel, head
     from os2d_torch.models.os2d import fold_inference_params
     from os2d_torch.models.resnet import Conv2d
 
-    state = Os2dModel(Os2dConfig(), device="cpu").state_dict()
+    if inputs == "planted":
+        from torch_card_scenes import normalized, planted_scenes
+
+        state = {k: v.cpu() for k, v in Os2dModel(Os2dConfig(), seed=0).state_dict().items()}
+        x = normalized(Os2dConfig(), planted_scenes()[0][:1, :256, :320])[0][None]
+        x = x.permute(0, 3, 1, 2)
+    else:
+        state = Os2dModel(Os2dConfig(), device="cpu").state_dict()
+        x = torch.randn(2, 3, 128, 160, generator=torch.Generator().manual_seed(0))
     # a non-zero final TransformNet layer: theta, loc and corners vary
     state["transform_net.linear.weight"] = 0.02 * torch.randn(
         state["transform_net.linear.weight"].shape, generator=torch.Generator().manual_seed(1))
@@ -456,7 +525,6 @@ def test_bf16_modes_card_match_cpu(folded, cuda_gen):
 
     card, cpu16 = build("bfloat16", "cuda"), build("bfloat16", "cpu")
     cpu32 = build("float32", "cpu")
-    x = torch.randn(2, 3, 128, 160, generator=torch.Generator().manual_seed(0))
     ratios, conv_ratios = {}, {}
     with torch.no_grad():
         convs = [{n: c for n, c in m.backbone.named_modules() if isinstance(c, Conv2d)}
@@ -480,6 +548,10 @@ def test_bf16_modes_card_match_cpu(folded, cuda_gen):
         fm = want16.permute(0, 2, 3, 1)
         bank = head.build_class_head(fm)
         assert bank.class_feats.dtype == fm.dtype == (torch.bfloat16 if folded else torch.float32)
+        if folded:
+            ratios["class_feats"] = _bf16_rule(
+                head.build_class_head(fm.cuda()).class_feats, bank.class_feats,
+                head.build_class_head(fm.float()).class_feats, exact_ok=True)
         out16 = cpu16.apply_head(fm, bank)
         out32 = cpu32.apply_head(fm.float(), head.ClassHead(bank.class_feats.float(),
                                                             bank.pool_mask.float()))
@@ -690,28 +762,43 @@ def test_one_rank_nccl_step_matches_the_plain_step(cuda_gen, monkeypatch):
 # weights under the port's defaults, as under cudnn.deterministic.
 
 
+@pytest.mark.parametrize("recipe", ["synthetic", "planted"])
 @pytest.mark.parametrize("deterministic", [False, True], ids=["default", "cudnn_deterministic"])
-def test_train_steps_repeat(deterministic, cuda_gen):
+def test_train_steps_repeat(deterministic, recipe, cuda_gen, tmp_path):
     """Two TrainSteps from the same weights on the same batches over 3
     steps: every loss term and every weight equal to the bit, under the
-    port's defaults and under cudnn.deterministic."""
+    port's defaults and under cudnn.deterministic. Recipes: synthetic
+    320-px batches with 128-px class images, or the default recipe at full
+    width on 3 batches of the planted training set
+    (tests/torch_card_scenes.py), seed-1 weights."""
     from os2d_torch.config import get_default_cfg
     from os2d_torch.engine.objective import ObjectiveConfig
     from os2d_torch.engine.optimization import create_optimizer
-    from os2d_torch.engine.train import TrainStep, trainable_parameters
+    from os2d_torch.engine.train import TrainStep, prepare_batch_arrays, trainable_parameters
     from os2d_torch.models import Os2dConfig, Os2dModel
 
     cfg = get_default_cfg()
-    arrays = [_train_arrays(cuda_gen) for _ in range(3)]
+    if recipe == "planted":
+        from os2d_torch.data.dataloader import build_train_dataloader_from_config
+        from torch_card_scenes import train_cfg, train_dataset
+
+        loader, _ = build_train_dataloader_from_config(train_cfg(), train_dataset(str(tmp_path)),
+                                                       seed=0)
+        arrays = [prepare_batch_arrays(loader.get_batch(i % len(loader)), "cuda")
+                  for i in range(3)]
+        config, seed = Os2dConfig(), 1
+    else:
+        arrays = [(_train_arrays(cuda_gen), 4) for _ in range(3)]
+        config, seed = Os2dConfig(class_image_size=128), 3
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = deterministic
     try:
         runs = []
         for _ in range(2):
-            model = Os2dModel(Os2dConfig(class_image_size=128), seed=3)
+            model = Os2dModel(config, seed=seed)
             optimizer = create_optimizer(cfg.train.optim, trainable_parameters(model, cfg.train))
             step = TrainStep(model, ObjectiveConfig(margin_pos=1.0), optimizer, cfg.train)
-            runs.append((model, [step(a, 4) for a in arrays]))
+            runs.append((model, [step(*a) for a in arrays]))
     finally:
         torch.backends.cudnn.deterministic = saved
     (model_a, metrics_a), (model_b, metrics_b) = runs
@@ -788,10 +875,13 @@ def test_bf16_fold_eval_repeats_to_the_bit(cuda_gen):
     assert first[..., 5].any() and torch.equal(first, second)
 
 
-def test_yuv420_decode_on_the_card_matches_the_cpu(cuda_gen):
+@pytest.mark.parametrize("inputs", ["random", "planted"])
+def test_yuv420_decode_on_the_card_matches_the_cpu(inputs, cuda_gen, tmp_path):
     """The wire's decode on the card: the float RGB equal to the CPU's (both
     divide by K_G as IEEE fp32 does; held within 1e-4, as against JAX) and
-    the uint8 RGB equal."""
+    the uint8 RGB equal. Inputs: random 1280x960 images, or the batch of
+    the planted scenes written at 1280x960 (each pixel replicated 2x2) as
+    JPEG files and read back through the data layer."""
     import numpy as np
 
     from os2d_torch.ops.pixel_format import (
@@ -801,7 +891,17 @@ def test_yuv420_decode_on_the_card_matches_the_cpu(cuda_gen):
         yuv420_to_rgb_f32,
     )
 
-    img = np.random.RandomState(0).randint(0, 256, (2, 960, 1280, 3), np.uint8)
+    if inputs == "planted":
+        from os2d_torch.data.dataloader import DataloaderOneShotDetection
+        from torch_card_scenes import dataset, write_planted_dataset
+
+        root = str(tmp_path)
+        loader = DataloaderOneShotDetection(
+            dataset(root, write_planted_dataset(root, 2), "planted-wire", 1280), batch_size=2,
+            pyramid_scales_eval=[0.5, 1.0])
+        img = np.stack(next(loader.make_raw_iterator_for_all_images(2))[1])
+    else:
+        img = np.random.RandomState(0).randint(0, 256, (2, 960, 1280, 3), np.uint8)
     packed = rgb_to_yuv420(img)
     flat_cpu = torch.from_numpy(packed.data)
     flat_card = flat_cpu.cuda()

@@ -3,7 +3,7 @@ tests/test_no_env_flags.py, over every module of os2d_torch/.
 
 What changes the numerics or the schedule of a hot path is an argument or a
 config key (`Os2dConfig`, cfg.tpu.*); environment overrides live in the
-tools, chip_smoke.py and the tests, which pass explicit values in.
+tools and the tests, which pass explicit values in.
 
 Allowlist (each entry says why it is no such switch):
 - parallel/mesh.py RANK, WORLD_SIZE, LOCAL_RANK (and MASTER_ADDR /

@@ -65,7 +65,7 @@ FP64_RTOL = 1e-7
 FORWARD_NOISE_FACTOR = 3.0
 STEP_LOSS_RTOL, STEP_UPDATE_NORM_RTOL, STATS_RTOL = 1e-4, 5e-2, 1e-4
 # a bf16 step's loss carries decorrelated bf16 rounding noise: it is held
-# within 3x JAX's own |bf16 - fp32| (chip_smoke.py's BF16_STEP_RULE); here
+# within 3x JAX's own |bf16 - fp32| (the card tests' BF16_STEP_RULE); here
 # JAX's bf16 first loss is 13.5% from its fp32 one and the port's 14.5% from
 # JAX's bf16 one
 BF16_STEP_RULE = 3.0

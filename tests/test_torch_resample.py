@@ -1,7 +1,7 @@
 """The port's correlation resample (`os2d_torch.ops.resample`) against both
 JAX contracts. On the CPU the wrapper runs its plain PyTorch version; the
 CUDA kernel is held against that plain version on the card by
-tests/test_torch_kernels_card.py and by chip_smoke.py.
+tests/test_torch_kernels_card.py and tests/test_torch_eval_card.py.
 
 Tolerance rtol 1e-5, atol 1e-6, as tests/test_pallas_resample.py: both sides
 are fp32 bilinear samples summed over t in another order.

@@ -2,7 +2,7 @@
 wrapper `ops.resample_grad.resample_correlation_backward` runs its plain
 version `ops.sampling.resample_backward_reference`; the CUDA kernel
 (csrc/resample_backward.cu) is held against that plain version on the card by
-tests/test_torch_kernels_card.py and chip_smoke.py.
+tests/test_torch_kernels_card.py and tests/test_torch_train_card.py.
 
 - Against `jax.vjp` of `os2d_tpu.ops.sampling.resample_correlation_from_pxpy`
   at `precision="highest"` (JAX on the CPU, fp32), the form the JAX trainer

@@ -27,6 +27,7 @@ flags set, and the arrays each figure would be drawn from are compared
 """
 
 import functools
+import logging
 import os
 import random
 
@@ -155,6 +156,10 @@ def test_evaluate_figures_match_jax(params, tmp_path, monkeypatch, caplog):
                                         batch_size=1, pyramid_scales_eval=[1.0])
     jrec, trec = Recorder(monkeypatch, jviz), Recorder(monkeypatch, tviz)
     want = jeval.evaluate(jloader, _jax_model(), params, _eval_cfg(jax_cfg(), tmp_path / "jax"))
+    # utils.logger.setup_logger("OS2D"), run by an earlier test of this
+    # process (main, the tooling tests), stops the logger propagating to the
+    # root handler that caplog reads
+    monkeypatch.setattr(logging.getLogger("OS2D"), "propagate", True)
     with caplog.at_level("INFO"):
         got = teval.evaluate(loader, _port_model(params),
                              _eval_cfg(get_default_cfg(), tmp_path / "torch"))

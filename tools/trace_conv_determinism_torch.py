@@ -7,7 +7,7 @@ one NVIDIA card, and what cuDNN's deterministic algorithms cost per layer.
 Each convolution of one training step is captured as the step runs it (its
 input and weight in the compute dtype, stride, padding, bias, and whether
 its input needs a gradient): `TrainStep` at the default train recipe's
-shapes (tools/bench_torch_dispatch.py: batch 4 of 600x600, 16 classes of
+shapes (`default_recipe_train_arrays`: batch 4 of 600x600, 16 classes of
 240 px, `Os2dConfig()`; the backbone on the scenes, the shared backbone on
 the class images, the TransformNet on [64, 225, 38, 38]; part "train", and
 "train_bf16" at compute_dtype bfloat16) and the ImageNet pretrainer's step
@@ -91,6 +91,38 @@ class ConvRecorder:
         resnet.Conv2d.forward, transform_net._conv_bias = self._saved
 
 
+def default_recipe_train_arrays(device="cuda"):
+    """A prepared batch at the default train recipe's shapes: 4 uint8 images
+    of 600x600, 16 classes of 240x240, two ground-truth boxes an image near
+    the anchors' 240 px (so that some anchors are positives), from a fixed
+    generator. Returns (arrays, padded class count)."""
+    import torch
+
+    from os2d_torch.engine.decode import default_boxes_for_image_size
+    from os2d_torch.structures.feature_map import FeatureMapSize
+
+    b, side, classes = 4, 600, 16
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.uint8)
+
+    gt_boxes = torch.zeros((b, 8, 4), device=device)
+    gt_boxes[:, 0] = torch.tensor([40.0, 40.0, 280.0, 280.0])
+    gt_boxes[:, 1] = torch.tensor([264.0, 248.0, 504.0, 488.0])
+    gt_valid = torch.zeros((b, 8), dtype=torch.bool, device=device)
+    gt_valid[:, :2] = True
+    arrays = {"images": u8(b, side, side, 3), "class_images": u8(classes, 240, 240, 3),
+              "class_valid": torch.ones(classes, dtype=torch.bool, device=device),
+              "gt_boxes": gt_boxes,
+              "gt_labels": torch.tensor([[0, 1] + [-1] * 6] * b, device=device),
+              "gt_difficult": torch.zeros((b, 8), dtype=torch.bool, device=device),
+              "gt_valid": gt_valid,
+              "default_boxes": default_boxes_for_image_size(FeatureMapSize(w=side, h=side),
+                                                            device=device)}
+    return arrays, classes
+
+
 def capture_train_step(compute_dtype="float32"):
     """The convolutions of one TrainStep at the default recipe's shapes."""
     import torch
@@ -100,7 +132,6 @@ def capture_train_step(compute_dtype="float32"):
     from os2d_torch.engine.optimization import create_optimizer
     from os2d_torch.engine.train import TrainStep, trainable_parameters
     from os2d_torch.models import Os2dConfig, Os2dModel
-    from tools.bench_torch_dispatch import default_recipe_train_arrays
 
     arrays, classes = default_recipe_train_arrays()
     cfg = get_default_cfg()
