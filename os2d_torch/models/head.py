@@ -13,6 +13,8 @@ stride 16 (os2d/modeling/head.py:222-238).
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import NamedTuple
 
 import torch
@@ -40,7 +42,7 @@ from ..structures.feature_map import (
     FEATURE_MAP_STRIDE,
     compose_receptive_field,
 )
-from ..utils.profiling import host_constant
+from ..utils.profiling import annotate, host_constant
 
 TEMPLATE_H = ALIGNER_GRID_SIZE.h
 TEMPLATE_W = ALIGNER_GRID_SIZE.w
@@ -68,6 +70,108 @@ def _interior_permutation(border: int = POOL_BORDER_WIDTH):
     inside = set(interior)
     border_idx = [t for t in range(TEMPLATE_W * TEMPLATE_H) if t not in inside]
     return interior + border_idx
+
+
+class HeadConstants(NamedTuple):
+    """The head's tensors that depend only on the device and the feature
+    map's (h, w), read-only."""
+
+    perm: torch.Tensor  # [225] int64: `_interior_permutation()`
+    lattice: torch.Tensor  # [2, 11] fp32: the interior template lattice, x then y
+    fb: torch.Tensor  # [h*w, 4]: feature-map-level anchors (box 15, stride 1)
+    # [1, 1, h, w] each, of the image-level anchors (box 240, stride 16):
+    ix_a: torch.Tensor  # half width
+    ix_b: torch.Tensor  # x centre
+    iy_a: torch.Tensor  # half height
+    iy_b: torch.Tensor  # y centre
+    default_boxes: torch.Tensor  # [1, 1, h, w, 4]: the anchors, clip_to_min_size(., 1.0)
+
+
+class HeadConstantCache:
+    """`lookup(device, h, w)` -> HeadConstants, built on the device at the
+    first lookup of its key and then reused.
+
+    None of these tensors depends on the input. Building them copies host
+    values (`host_constant`: the permutation and the two lattice rows), and
+    on a card each such copy waits for the stream to drain; a lookup of a
+    built entry copies nothing and waits for nothing, so a head call's
+    launches queue behind the work before it.
+
+    - A build runs `host_constant`, `linspace` and `strided_anchor_grid` on
+      the device, so the values are those of the same expressions computed
+      per call, to the bit. The permutation and the lattice are built once
+      per device, the anchors once per (device, h, w).
+    - On a card a build ends in one wait for its stream (span
+      `os2d.wait.constant`), so an entry is complete before any stream
+      reads it: serving and mining run the head on threads of their own.
+    - The tensors are read-only: no caller writes them in place.
+    - At most MAX_SHAPES shape entries are held, the least recently used
+      evicted first, so varied image sizes do not grow the cache without
+      bound.
+
+    Counters since it was made, read and reset by whoever measures them:
+    `lookups` (head calls) and `builds` (shape entries built)."""
+
+    MAX_SHAPES = 64
+
+    def __init__(self):
+        self.lookups = 0
+        self.builds = 0
+        self._lock = threading.Lock()
+        self._by_device = {}  # device -> (perm, lattice)
+        self._by_shape = collections.OrderedDict()  # (device, h, w) -> HeadConstants
+
+    def lookup(self, device, h: int, w: int) -> HeadConstants:
+        key = (torch.device(device), h, w)
+        with self._lock:
+            self.lookups += 1
+            entry = self._by_shape.get(key)
+            if entry is None:
+                entry = self._by_shape[key] = self._build(*key)
+                self.builds += 1
+                if len(self._by_shape) > self.MAX_SHAPES:
+                    self._by_shape.popitem(last=False)
+            else:
+                self._by_shape.move_to_end(key)
+            return entry
+
+    def clear(self) -> None:
+        """Drop every entry (the counters stay)."""
+        with self._lock:
+            self._by_device.clear()
+            self._by_shape.clear()
+
+    def _build(self, device, h, w) -> HeadConstants:
+        if device not in self._by_device:
+            ts = slice(POOL_BORDER_WIDTH, TEMPLATE_H - POOL_BORDER_WIDTH)
+            # t = tx * th_int + ty (the _interior_permutation / weakalign order)
+            self._by_device[device] = (
+                host_constant(_interior_permutation(), device=device),
+                torch.stack([linspace(-1.0, 1.0, TEMPLATE_W, device=device)[ts],
+                             linspace(-1.0, 1.0, TEMPLATE_H, device=device)[ts]]))
+        perm, lattice = self._by_device[device]
+        fb = strided_anchor_grid(
+            w, h, float(ALIGNER_RECEPTIVE_FIELD.w), float(ALIGNER_RECEPTIVE_FIELD.h),
+            float(ALIGNER_STRIDE.w), float(ALIGNER_STRIDE.h), device=device,
+        )
+        boxes_img = strided_anchor_grid(
+            w, h, float(ANCHOR_BOX.w), float(ANCHOR_BOX.h),
+            float(ANCHOR_STRIDE.w), float(ANCHOR_STRIDE.h), device=device,
+        ).reshape(1, 1, h, w, 4)
+        entry = HeadConstants(
+            perm, lattice, fb,
+            (boxes_img[..., 2] - boxes_img[..., 0]) / 2.0,
+            (boxes_img[..., 2] + boxes_img[..., 0]) / 2.0,
+            (boxes_img[..., 3] - boxes_img[..., 1]) / 2.0,
+            (boxes_img[..., 3] + boxes_img[..., 1]) / 2.0,
+            clip_to_min_size(boxes_img, 1.0))
+        if device.type == "cuda":
+            with annotate("os2d.wait.constant"):
+                torch.cuda.current_stream(device).synchronize()
+        return entry
+
+
+head_constants = HeadConstantCache()
 
 
 def make_class_pool_mask(num_classes: int, device=None, dtype=torch.float32):
@@ -164,7 +268,7 @@ def _prepare_theta(tparams, simple_affine: bool):
     return tparams.reshape(-1, 2, 3)
 
 
-def _interior_first_resample(corr, theta, anchor_boxes, pool_mask, precision: str):
+def _interior_first_resample(corr, theta, anchor_boxes, lattice, pool_mask, precision: str):
     """(cls, cls_detached) on the interior-first corr: sample coordinates
     straight from theta over the interior template lattice
     (`ops.geometry.interior_sample_coords`, the same scalar expression per
@@ -174,7 +278,6 @@ def _interior_first_resample(corr, theta, anchor_boxes, pool_mask, precision: st
     coordinates in registers, and no [B, C, T, A] px/py is built."""
     b, c, h, w, _ = corr.shape
     a = h * w
-    device = corr.device
     bw = POOL_BORDER_WIDTH
     ts = slice(bw, TEMPLATE_H - bw)
     n_int = (TEMPLATE_H - 2 * bw) * (TEMPLATE_W - 2 * bw)
@@ -182,9 +285,6 @@ def _interior_first_resample(corr, theta, anchor_boxes, pool_mask, precision: st
     # JAX casts it to corr's dtype (os2d_tpu/ops/sampling.py:182)
     mask_t = pool_mask[:, ts, ts].transpose(1, 2).reshape(c, n_int)
     mask_t = mask_t.float().contiguous()
-    # t = tx * th_int + ty (the _interior_permutation / weakalign order)
-    lattice = torch.stack([linspace(-1.0, 1.0, TEMPLATE_W, device=device)[ts],
-                           linspace(-1.0, 1.0, TEMPLATE_H, device=device)[ts]])
     theta = theta.reshape(b, c, a, 6)
     if precision == "int8" and not records_graph(corr, theta):
         cls = resample_correlation_int8_theta(corr[..., :n_int], theta.contiguous(),
@@ -249,8 +349,8 @@ def head_forward(
     c = class_head.class_feats.shape[0]
     a = h * w
     t_dim = TEMPLATE_W * TEMPLATE_H
-    device = image_feature_maps.device
 
+    consts = head_constants.lookup(image_feature_maps.device, h, w)
     fm = l2_normalize_channels(image_feature_maps, eps=1e-5, dim=-1)
 
     # dense correlation; corr channel of template point (x_c, y_c) is
@@ -259,7 +359,7 @@ def head_forward(
     feats_t = class_head.class_feats.transpose(1, 2).reshape(c, t_dim, f)
     perm = None
     if corr_interior_first:
-        perm = host_constant(_interior_permutation(), device=device)
+        perm = consts.perm
         feats_t = feats_t[:, perm]
     corr = correlation_gemm(fm.reshape(b * a, f), feats_t.reshape(c * t_dim, f), compute_dtype)
     corr = corr.reshape(b, h, w, c, t_dim).permute(0, 3, 1, 2, 4).contiguous()  # [B, C, H, W, T]
@@ -271,10 +371,7 @@ def head_forward(
         theta = invert_affine_2x3(theta)
 
     # (1) recognition w.r.t. feature-map-level anchors (box 15, stride 1)
-    fb = strided_anchor_grid(
-        w, h, float(ALIGNER_RECEPTIVE_FIELD.w), float(ALIGNER_RECEPTIVE_FIELD.h),
-        float(ALIGNER_STRIDE.w), float(ALIGNER_STRIDE.h), device=device,
-    )
+    fb = consts.fb
     if perm is None:
         # the grid path: [B, C, H, W, 15, 15, 2] grids, the interior
         # compacted out of the natural channel order
@@ -289,19 +386,12 @@ def head_forward(
             resample_precision)
     else:
         cls, cls_detached = _interior_first_resample(
-            corr, theta, fb, class_head.pool_mask, resample_precision)
+            corr, theta, fb, consts.lattice, class_head.pool_mask, resample_precision)
 
     # (2) localization: envelope + corners in closed form from theta w.r.t.
     # image-level anchors (box 240, stride 16)
-    boxes_img = strided_anchor_grid(
-        w, h, float(ANCHOR_BOX.w), float(ANCHOR_BOX.h),
-        float(ANCHOR_STRIDE.w), float(ANCHOR_STRIDE.h), device=device,
-    ).reshape(1, 1, h, w, 4)
     th4 = theta.reshape(b, c, h, w, 2, 3)
-    ix_a = (boxes_img[..., 2] - boxes_img[..., 0]) / 2.0  # [1, 1, h, w]
-    ix_b = (boxes_img[..., 2] + boxes_img[..., 0]) / 2.0
-    iy_a = (boxes_img[..., 3] - boxes_img[..., 1]) / 2.0
-    iy_b = (boxes_img[..., 3] + boxes_img[..., 1]) / 2.0
+    ix_a, ix_b, iy_a, iy_b = consts.ix_a, consts.ix_b, consts.iy_a, consts.iy_b
 
     lmin, lmax = affine_grid_envelope(th4)  # [b, c, h, w, 2] each
     class_boxes = torch.stack(
@@ -314,8 +404,7 @@ def head_forward(
         dim=-1,
     )  # [B, C, H, W, 4]
     class_boxes = clip_to_min_size(class_boxes, 1.0)
-    default_boxes = clip_to_min_size(boxes_img, 1.0)
-    loc = encode_boxes(class_boxes, default_boxes)  # [B, C, H, W, 4]
+    loc = encode_boxes(class_boxes, consts.default_boxes)  # [B, C, H, W, 4]
 
     cl = affine_grid_corners(th4.detach())  # [b, c, h, w, 4, 2]
     corners = torch.stack(

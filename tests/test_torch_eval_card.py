@@ -1,9 +1,10 @@
 """The port's eval path on the card, held against the CPU and against its
 plain kernels: planted patches, evaluate() to mAP, the class prescreen, the
-benchmark's dispatch and the kernels on its own inputs, the numeric modes,
-the model options (int8 tier and bank, the grid path, GroupNorm and
-ResNet101), evaluate()'s host side (producer thread, per-level class
-chunks, the figures) and the yuv420 upload wire.
+benchmark's dispatch (with the head's constants from their cache) and the
+kernels on its own inputs, the numeric modes, the model options (int8 tier
+and bank, the grid path, GroupNorm and ResNet101), evaluate()'s host side
+(producer thread, per-level class chunks, the figures) and the yuv420
+upload wire.
 
 Without a card every test here skips. The file imports no JAX:
 
@@ -238,6 +239,35 @@ def test_bench_dispatch_launches_its_kernels_once_a_level(option, kernel, model,
     d = unpack_detections(out)
     assert np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"][d["valid"]]).all()
     assert d["valid"].any()
+
+
+def test_bench_dispatch_reads_the_heads_constants_from_its_cache(model):
+    """After one warm request, a dispatch at the benchmark's protocol looks
+    the head's constants up once a level (`models/head.py:
+    head_constants`) and builds none, and no `os2d.wait.constant` opens
+    inside an `os2d.head`; its packed detections equal those of a dispatch
+    on a cleared cache to the bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from os2d_torch.models.head import head_constants
+
+    b = _bench(model)
+    b.ev.detect_images(b.batches[1], b.head, b.sizes, b.inv, b.norm)
+    lookups, builds = head_constants.lookups, head_constants.builds
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        warm = b.ev.detect_images(b.batches[0], b.head, b.sizes, b.inv, b.norm)
+        torch.cuda.synchronize()
+    assert head_constants.lookups - lookups == len(PYRAMID)
+    assert head_constants.builds == builds
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()]
+    heads = [s for s in spans if s[2] == "os2d.head"]
+    waits = [s for s in spans if s[2] == "os2d.wait.constant"]
+    assert len(heads) == len(PYRAMID) and waits
+    assert not [w for w in waits for h in heads if h[0] <= w[0] and w[1] <= h[1]]
+    head_constants.clear()
+    cold = b.ev.detect_images(b.batches[0], b.head, b.sizes, b.inv, b.norm)
+    assert head_constants.builds - builds == len(PYRAMID)
+    assert torch.equal(warm, cold)
 
 
 def test_kernels_on_the_main_paths_inputs(model):
