@@ -18,9 +18,10 @@ kernel's launches from a reset just before their own run and record them
 (`record_property("launches", ...)`). Then one {"kernels": [...]} line,
 each CUDA kernel of the port with its source, the TPU code it replaces,
 its launches where the main path (or, for GroupNorm, a GroupNorm model's
-first step; for the gather and int8 kernels, their tier's dispatch) runs it,
-and its table row; and the last line {"ok": ..., "device": {...}}. Without
-a card it prints no result and exits 1.
+first step; for the gather and int8 kernels, their tier's dispatch; for
+RoIAlign, a CoAE request) runs it, and its table row; and the last line
+{"ok": ..., "device": {...}}. Without a card it prints no result and exits
+1.
 """
 
 import glob
@@ -50,6 +51,8 @@ KERNELS = (
      "test_first_step_of_a_model_option_matches_the_cpu[group_norm]", "gn_backward"),
     ("frozen_bn_act", "frozen_bn_act", "os2d_torch/csrc/frozen_bn_act_nhwc.cu",
      "os2d_tpu/models/resnet.py:57", f"{EVAL}[default-hat]", "frozen_bn"),
+    ("roi_align", "roi_align", "os2d_torch/csrc/roi_align_nhwc.cu", "(none: no two-stage model)",
+     "test_coae_request_launches_its_kernels", "roi_align"),
 )
 
 

@@ -7,6 +7,10 @@
   tensor. With test-time class augmentation (TTA) the V views of a class are
   contiguous rows of the class bank; each view is decoded as an extra
   pyramid level, which gives the reference's joint per-class NMS over views.
+  A `models.coae.CoaeModel` takes the same path (its class bank a
+  `QueryBank`): its head gives each (image, query) pair's scored RoIs, which
+  the decode takes through NMS and the top K into the same packed tensor,
+  which the call returns with the pairs' proposals.
 - `Evaluator.detect_images_prescreened` is the no-miss class prescreen: the
   backbone once, per-class correlation ceilings, then the head and decode on
   the surviving classes only.
@@ -60,8 +64,10 @@ from ..models.head import (
     dequantize_class_head,
     quantize_class_head,
 )
+from ..models.coae import CoaeModel
 from ..models.os2d import fold_inference_params
 from ..ops.geometry import l2_normalize_channels
+from ..ops.nms import nms_topk
 from ..ops.pixel_format import (
     PackedYuv420,
     decode_to_float_rgb,
@@ -159,6 +165,16 @@ def _on_device(x, device):
         return torch.as_tensor(x, device=device)
 
 
+# the outputs of a CoaeModel's head that detect_images keeps, each [B, C, post, ...]
+COAE_KEYS = ("boxes", "scores", "valid", "proposals", "proposal_scores")
+
+
+def _bank_rows(bank) -> int:
+    """The classes (query rows) of a class bank: a ClassHead, a
+    QuantizedClassHead or a CoAE QueryBank."""
+    return bank[0].shape[0]
+
+
 def _pad_classes(x, c_pad: int):
     if x.shape[0] == c_pad:
         return x
@@ -207,6 +223,33 @@ def _decode_and_pack(loc_p, cls_p, sizes, scales, num_views, cfg):
         )
         return torch.cat(
             [out["boxes"], out["scores"][..., None], out["valid"][..., None].float()], dim=-1)
+
+
+def _scaled(boxes, scale):
+    """xyxy boxes [..., 4] times (sx, sy, sx, sy), with no host copy."""
+    sx, sy = scale
+    return torch.stack([boxes[..., 0] * sx, boxes[..., 1] * sy, boxes[..., 2] * sx,
+                        boxes[..., 3] * sy], -1)
+
+
+def _pack_pair_detections(out, scales, cfg):
+    """A CoAE head's outputs ({key of COAE_KEYS: [per level]}) -> (packed
+    [B, G, K, 6] detections, proposals [B, G, L * post, 6]), both in the
+    original image's pixels: each pair's scored RoIs of every level through
+    NMS at cfg.eval.nms_iou_threshold and the top cfg.tpu.eval_top_k, a RoI
+    scoring at or under cfg.eval.nms_score_threshold dropped; the
+    proposals as (box, score, valid). Runs in span `os2d.eval.decode`."""
+    with annotate("os2d.eval.decode"):
+        boxes = torch.cat([_scaled(b, s) for b, s in zip(out["boxes"], scales)], -2)
+        scores, valid = torch.cat(out["scores"], -1), torch.cat(out["valid"], -1)
+        nb, ns, nv, _ = nms_topk(boxes, scores,
+                                 valid & (scores > float(cfg.eval.nms_score_threshold)),
+                                 float(cfg.eval.nms_iou_threshold), int(cfg.tpu.eval_top_k))
+        packed = torch.cat([nb, ns[..., None], nv[..., None].float()], dim=-1)
+        proposals = torch.cat([
+            torch.cat([_scaled(b, s) for b, s in zip(out["proposals"], scales)], -2),
+            torch.cat(out["proposal_scores"], -1)[..., None], valid[..., None].float()], dim=-1)
+        return packed, proposals
 
 
 def padded_gt_for_image(dataloader, image_id, class_ids, num_views: int, g_pad: int):
@@ -376,7 +419,7 @@ class Evaluator:
         every chunk, and each output is gathered whole. Runs in span
         `os2d.eval.scores` (each head call in its own `os2d.head`)."""
         mesh = self.mesh if shard_classes else None
-        c_total = class_head.pool_mask.shape[0]
+        c_total = _bank_rows(class_head)
         if level_chunks is None:
             level_chunks = [self._class_chunk(mesh is not None)] * len(fms)
         with annotate("os2d.eval.scores"):
@@ -430,6 +473,11 @@ class Evaluator:
         decodes to uint8 before the rows are split, as JAX's mesh paths
         decode up front.
 
+        A CoaeModel detects on one device, with one view a class and no
+        losses, and returns (packed, {"proposals": [B, G, post, 6]}): each
+        pair's proposals on the device (x1, y1, x2, y2 in the original
+        image's pixels, score, valid), sorted by score.
+
         Args:
           level_sizes: FeatureMapSize (w, h) of each pyramid level.
           inverse_scales: per level (sx, sy) back to the input image.
@@ -440,6 +488,10 @@ class Evaluator:
             returns (packed, {loss name: [B] tensor}) from the same scores
             (`eval_losses`).
         """
+        coae = isinstance(self.model, CoaeModel)
+        if coae and (self.mesh is not None or num_views != 1 or objective_cfg is not None):
+            raise ValueError("a CoaeModel detects on one device, with one view a class and "
+                             "no losses")
         by_images = self.mesh is not None and self.shard_axis == "images"
         if by_images:
             self.check_image_batch(images_u8.shape[0])
@@ -453,12 +505,15 @@ class Evaluator:
                 gt = {k: v[rows] for k, v in gt.items()}
         fms = self._pyramid_features(images_u8, level_sizes, img_normalization)
         bank = self._bank(class_head)
-        scores = self._score_levels(fms, bank,
+        scores = self._score_levels(fms, bank, COAE_KEYS if coae else ("loc", "cls"),
                                     shard_classes=self.mesh is not None and not by_images,
                                     level_chunks=self.level_chunks(level_sizes,
-                                                                   bank.pool_mask.shape[0]))
-        loc_p, cls_p = scores["loc"], scores["cls"]
+                                                                   _bank_rows(bank)))
         scales = [tuple(s) for s in inverse_scales]
+        if coae:
+            packed, proposals = _pack_pair_detections(scores, scales, self.cfg)
+            return packed, {"proposals": proposals}
+        loc_p, cls_p = scores["loc"], scores["cls"]
         packed = _decode_and_pack(loc_p, cls_p, list(level_sizes), scales, num_views, self.cfg)
         losses = None if objective_cfg is None else eval_losses(
             objective_cfg, self.cfg, loc_p, cls_p, list(level_sizes), scales, gt)
@@ -478,8 +533,10 @@ class Evaluator:
         cannot suppress real detections; pruned classes cannot suppress
         anything either (they have no detections above the threshold).
         Under image sharding it does not apply (os2d_tpu/engine/evaluate.py:
-        684-700)."""
+        684-700). A CoaeModel has no correlation ceilings: it does not
+        apply."""
         return (bool(self.cfg.tpu.eval_class_prescreen)
+                and not isinstance(self.model, CoaeModel)
                 and bool(np.isfinite(float(self.cfg.eval.nms_score_threshold)))
                 and not isinstance(class_head, QuantizedClassHead)
                 and (self.mesh is None or self.shard_axis == "classes"))

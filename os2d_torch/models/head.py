@@ -87,41 +87,32 @@ class HeadConstants(NamedTuple):
     default_boxes: torch.Tensor  # [1, 1, h, w, 4]: the anchors, clip_to_min_size(., 1.0)
 
 
-class HeadConstantCache:
-    """`lookup(device, h, w)` -> HeadConstants, built on the device at the
-    first lookup of its key and then reused.
+class ShapeConstantCache:
+    """`lookup(device, h, w)` -> the tensors that `make(device, h, w)`
+    builds on the device for a feature map of h x w, built at the first
+    lookup of the key and then reused.
 
-    None of these tensors depends on the input. Building them copies host
-    values (`host_constant`: the permutation and the two lattice rows), and
-    on a card each such copy waits for the stream to drain; a lookup of a
-    built entry copies nothing and waits for nothing, so a head call's
-    launches queue behind the work before it.
-
-    - A build runs `host_constant`, `linspace` and `strided_anchor_grid` on
-      the device, so the values are those of the same expressions computed
-      per call, to the bit. The permutation and the lattice are built once
-      per device, the anchors once per (device, h, w).
     - On a card a build ends in one wait for its stream (span
       `os2d.wait.constant`), so an entry is complete before any stream
-      reads it: serving and mining run the head on threads of their own.
+      reads it: serving and mining run the heads on threads of their own.
     - The tensors are read-only: no caller writes them in place.
     - At most MAX_SHAPES shape entries are held, the least recently used
       evicted first, so varied image sizes do not grow the cache without
       bound.
 
     Counters since it was made, read and reset by whoever measures them:
-    `lookups` (head calls) and `builds` (shape entries built)."""
+    `lookups` and `builds` (shape entries built)."""
 
     MAX_SHAPES = 64
 
-    def __init__(self):
+    def __init__(self, make):
         self.lookups = 0
         self.builds = 0
+        self._make = make
         self._lock = threading.Lock()
-        self._by_device = {}  # device -> (perm, lattice)
-        self._by_shape = collections.OrderedDict()  # (device, h, w) -> HeadConstants
+        self._by_shape = collections.OrderedDict()  # (device, h, w) -> entry
 
-    def lookup(self, device, h: int, w: int) -> HeadConstants:
+    def lookup(self, device, h: int, w: int):
         key = (torch.device(device), h, w)
         with self._lock:
             self.lookups += 1
@@ -138,10 +129,41 @@ class HeadConstantCache:
     def clear(self) -> None:
         """Drop every entry (the counters stay)."""
         with self._lock:
+            self._by_shape.clear()
+
+    def _build(self, device, h, w):
+        entry = self._make(device, h, w)
+        if device.type == "cuda":
+            with annotate("os2d.wait.constant"):
+                torch.cuda.current_stream(device).synchronize()
+        return entry
+
+
+class HeadConstantCache(ShapeConstantCache):
+    """`lookup(device, h, w)` -> HeadConstants (a ShapeConstantCache).
+
+    None of these tensors depends on the input. Building them copies host
+    values (`host_constant`: the permutation and the two lattice rows), and
+    on a card each such copy waits for the stream to drain; a lookup of a
+    built entry copies nothing and waits for nothing, so a head call's
+    launches queue behind the work before it.
+
+    A build runs `host_constant`, `linspace` and `strided_anchor_grid` on
+    the device, so the values are those of the same expressions computed per
+    call, to the bit. The permutation and the lattice are built once per
+    device, the anchors once per (device, h, w). `lookups` counts head
+    calls."""
+
+    def __init__(self):
+        super().__init__(self._head_constants)
+        self._by_device = {}  # device -> (perm, lattice)
+
+    def clear(self) -> None:
+        with self._lock:
             self._by_device.clear()
             self._by_shape.clear()
 
-    def _build(self, device, h, w) -> HeadConstants:
+    def _head_constants(self, device, h, w) -> HeadConstants:
         if device not in self._by_device:
             ts = slice(POOL_BORDER_WIDTH, TEMPLATE_H - POOL_BORDER_WIDTH)
             # t = tx * th_int + ty (the _interior_permutation / weakalign order)
@@ -158,17 +180,13 @@ class HeadConstantCache:
             w, h, float(ANCHOR_BOX.w), float(ANCHOR_BOX.h),
             float(ANCHOR_STRIDE.w), float(ANCHOR_STRIDE.h), device=device,
         ).reshape(1, 1, h, w, 4)
-        entry = HeadConstants(
+        return HeadConstants(
             perm, lattice, fb,
             (boxes_img[..., 2] - boxes_img[..., 0]) / 2.0,
             (boxes_img[..., 2] + boxes_img[..., 0]) / 2.0,
             (boxes_img[..., 3] - boxes_img[..., 1]) / 2.0,
             (boxes_img[..., 3] + boxes_img[..., 1]) / 2.0,
             clip_to_min_size(boxes_img, 1.0))
-        if device.type == "cuda":
-            with annotate("os2d.wait.constant"):
-                torch.cuda.current_stream(device).synchronize()
-        return entry
 
 
 head_constants = HeadConstantCache()

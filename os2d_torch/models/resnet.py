@@ -7,7 +7,10 @@ layer1..3, C4 output with 1024 channels at stride 16. Parameter names follow
 torchvision's (`layer1.0.conv1.weight`, `layer1.0.downsample.1.running_var`,
 ...), so reference checkpoints map onto the state_dict one to one. The public
 layout is the JAX package's NHWC; inside, the tensors are NCHW views of NHWC
-memory (channels_last), which cuDNN runs without a relayout.
+memory (channels_last). With fp32 and TF32 off cuDNN has only NCHW kernels
+for them, so it transposes the activations around each convolution
+(`nhwcToNchwKernel`, `nchwToNhwcKernel` in a trace); the port's own kernels
+(frozen BatchNorm, GroupNorm) read the channels-last memory as it is.
 
 Compute dtype (`Os2dConfig.compute_dtype`), as the JAX package rounds: each
 convolution casts its input and weight to the compute dtype and outputs in
@@ -38,8 +41,10 @@ as per-image cuBLAS GEMMs in a fixed sum, cuDNN's deterministic algorithms
 for the gradients whose default algorithms add with atomics), so that
 training repeats at a seed.
 
-`ResNetClassifier` is the full torchvision ResNet50/101 (layer4 at stride 2,
-global average pooling, fc) that the ImageNet pretrainer trains
+`build_layer4` is torchvision's layer4 (width 512, 2048 channels, stride 2
+on its first block's 3x3): the top of `ResNetClassifier` and CoAE's RoI head
+(models/coae.py). `ResNetClassifier` is the full torchvision ResNet50/101
+(layer4, global average pooling, fc) that the ImageNet pretrainer trains
 (os2d_tpu/models/resnet.py:167-266), with BatchNorm in train mode as JAX
 defines it (`batch_norm_train`: F.batch_norm in one process, the global
 batch's statistics over a mesh); its state_dict has torchvision's keys, so
@@ -328,6 +333,18 @@ def _he_normal_(weight, generator):
                                    device=weight.device))
 
 
+def build_layer4(arch: str = "resnet50", device=None, cin: int = 1024) -> nn.Sequential:
+    """torchvision's layer4 of `arch` on C4 features of `cin` channels:
+    RESNET_FULL_DEPTHS[arch][3] frozen-BatchNorm bottlenecks of width 512
+    (2048 channels), the first with stride 2 on its 3x3 and a downsample.
+    Its parent initializes it."""
+    blocks = []
+    for bi in range(RESNET_FULL_DEPTHS[arch][3]):
+        blocks.append(Bottleneck(cin, 512, 2 if bi == 0 else 1, device))
+        cin = 2048
+    return nn.Sequential(*blocks)
+
+
 class ResNetC4(nn.Module):
     """images [N, H, W, 3] (already normalized) -> C4 features
     [N, ceil(H/16), ceil(W/16), 1024]; each call runs in span
@@ -466,12 +483,7 @@ class ResNetClassifier(ResNetC4):
     def __init__(self, arch: str = "resnet101", num_classes: int = 1000, device=None,
                  compute_dtype=torch.float32):
         super().__init__(arch, device, compute_dtype)
-        cin = 1024
-        blocks = []
-        for bi in range(RESNET_FULL_DEPTHS[arch][3]):
-            blocks.append(Bottleneck(cin, 512, 2 if bi == 0 else 1, device))
-            cin = 2048
-        self.layer4 = nn.Sequential(*blocks)
+        self.layer4 = build_layer4(arch, device)
         self.fc = Linear(2048, num_classes, device)
 
     @torch.no_grad()

@@ -10,10 +10,11 @@
   pretrainer, the yuv420 wire and the checkpoint backends load none of
   those modules in a fresh process either.
 - The kernel wrappers (the fp32 gather, the bf16 hat resample, the int8
-  hat resample, the resample's backward, GroupNorm and the frozen
-  BatchNorm) have no `except` that could turn a failed kernel into a
+  hat resample, the resample's backward, GroupNorm, the frozen BatchNorm
+  and RoIAlign) have no `except` that could turn a failed kernel into a
   silent CPU fallback; every CUDA source has one.
-- Os2dModel targets CUDA unless told otherwise, and raises without it.
+- Os2dModel and CoaeModel target CUDA unless told otherwise, and raise
+  without it.
 """
 
 import ast
@@ -78,6 +79,10 @@ def test_frozen_bn_wrapper_has_no_except():
     assert not _except_handlers("frozen_bn.py")
 
 
+def test_roi_align_wrapper_has_no_except():
+    assert not _except_handlers("roi_align.py")
+
+
 def test_csrc_sources_have_wrappers():
     """Every CUDA source of the port has a CudaKernel that builds it."""
     from os2d_torch.ops import (
@@ -87,11 +92,12 @@ def test_csrc_sources_have_wrappers():
         int8_resample,
         resample,
         resample_grad,
+        roi_align,
     )
 
     sources = {k.source for k in (resample.KERNEL, hat_resample.KERNEL, int8_resample.KERNEL,
                                   resample_grad.KERNEL, group_norm.FORWARD, group_norm.BACKWARD,
-                                  frozen_bn.KERNEL)}
+                                  frozen_bn.KERNEL, roi_align.KERNEL)}
     assert sources == {p.name for p in (ROOT / "os2d_torch" / "csrc").glob("*.cu")}
 
 
@@ -122,6 +128,20 @@ def test_model_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             Os2dModel()
     assert Os2dModel(device="cpu").device.type == "cpu"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_coae_model_defaults_to_cuda():
+    from os2d_torch.models.coae import CoaeModel
+
+    if torch.cuda.is_available():
+        assert CoaeModel().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            CoaeModel()
+    torch.backends.cudnn.allow_tf32 = True
+    assert CoaeModel(device="cpu").device.type == "cpu"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
 

@@ -346,11 +346,13 @@ def kernels():
         int8_resample,
         resample,
         resample_grad,
+        roi_align,
     )
 
     return {"gather": resample.KERNEL, "hat": hat_resample.KERNEL, "int8": int8_resample.KERNEL,
             "backward": resample_grad.KERNEL, "gn_forward": group_norm.FORWARD,
-            "gn_backward": group_norm.BACKWARD, "frozen_bn": frozen_bn.KERNEL}
+            "gn_backward": group_norm.BACKWARD, "frozen_bn": frozen_bn.KERNEL,
+            "roi_align": roi_align.KERNEL}
 
 
 class Launches(dict):

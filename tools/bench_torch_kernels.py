@@ -27,7 +27,12 @@ bytes and operations with the term that sets it (`bound_ms`, `bound_by`):
     pass, the stem and layer3 slots of its 16 x 240-px class pass);
   - "frozen_bn_act": the frozen BatchNorm kernel at FBN_SLOTS of the eval
     protocol's 1.6 level, beside ATen's eager chain and the host's
-    microseconds a call of each.
+    microseconds a call of each;
+  - "roi_align": the RoIAlign kernel at the CoAE cell's shapes (32 pairs of
+    60x80x1024 maps, 300 RoIs each of the anchors' sizes, clipped to the
+    1280x960 image), beside its plain version on the card; its bytes those
+    of `hopper_bench/counts/coae.py: roi_align_bytes` with each pair's
+    touched cells (`touched_cells`).
 The bounds come from hopper_bench/counts: `flops.bound_s` against the HBM
 and fp32 rates of peaks.json, `flops.hat_bytes_ops` and
 `backward_bytes_ops`, `group_norm.slot_bytes`; the gather's, the int8
@@ -94,6 +99,7 @@ from hopper_bench.counts.flops import (  # noqa: E402
     bound_s,
     hat_bytes_ops,
 )
+from hopper_bench.counts.coae import roi_align_bytes, touched_cells  # noqa: E402
 from hopper_bench.counts.group_norm import slot_bytes  # noqa: E402
 from tools.trace_conv_determinism_torch import default_recipe_train_arrays  # noqa: E402
 
@@ -688,6 +694,33 @@ def table_frozen_bn(gen, iters):
         del args
 
 
+def table_roi_align(gen, iters, pairs=32, fm=(60, 80), channels=1024, post=300, pool=7):
+    """The RoIAlign row at the CoAE cell's shapes, beside its plain version
+    on the card."""
+    import torch
+
+    from os2d_torch.ops.roi_align import roi_align, roi_align_reference
+
+    h, w = fm[0] * 16, fm[1] * 16
+    n = pairs * post
+    u = torch.rand(n, 4, generator=gen, device="cuda")
+    cx, cy = u[:, 0] * w, u[:, 1] * h
+    bw, bh = 64 * torch.exp(u[:, 2] * 2.5), 64 * torch.exp(u[:, 3] * 2.5)
+    boxes = torch.stack([(cx - bw / 2).clamp(0, w - 1), (cy - bh / 2).clamp(0, h - 1),
+                         (cx + bw / 2).clamp(0, w - 1), (cy + bh / 2).clamp(0, h - 1)], 1)
+    index = torch.arange(pairs, device="cuda").repeat_interleave(post).float()
+    rois = torch.cat([index[:, None], boxes], 1)
+    feats = torch.randn(pairs, *fm, channels, generator=gen, device="cuda")
+    per_roi = touched_cells(boxes.tolist(), 1.0 / 16, *fm)
+    cells = [sum(per_roi[i * post:(i + 1) * post]) for i in range(pairs)]
+    _row("roi_align", cuda_ms(lambda: roi_align(feats, rois, pool), iters),
+         bound(roi_align_bytes(pairs, post, *fm, channels, pool, cells), 0),
+         shape={"pairs": pairs, "fm": list(fm), "channels": channels, "rois_per_pair": post},
+         plain_ms=cuda_ms(lambda: roi_align_reference(feats, rois, pool), 2),
+         library_ms=None, library="(none: torchvision is not installed)")
+    del feats, rois
+
+
 def build_line(name, package, sources):
     """Build `sources` of a package (its cuda module), all nvcc processes
     at once; one line with the seconds and ptxas's registers and spills."""
@@ -742,6 +775,7 @@ def main(argv):
         table_backward(args.iters)
         table_group_norm(gen, args.iters)
         table_frozen_bn(gen, args.iters)
+        table_roi_align(gen, args.iters)
     if "backward" in parts:
         bench_backward(packages, gen, args.iters, args.profile)
     if "int8" in parts:
